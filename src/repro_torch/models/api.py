@@ -1,0 +1,53 @@
+"""Family-dispatched model API.
+
+The same five entry points as the JAX package's ``models/api.py``; those
+that create tensors take a ``device`` (the card unless the caller asks for
+the CPU), and the rest run where their inputs live:
+
+  init_params(cfg, generator, device)          -> params pytree
+  init_cache(cfg, batch, max_len, device)      -> decode cache
+  prefill(cfg, params, tokens, max_len)        -> (last logits, cache)
+  decode_step(cfg, params, cache, tokens)      -> (logits, cache)
+  count_params(params)                         -> int
+
+``train_loss`` comes with the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+Params = dict[str, Any]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device: str | torch.device = "cuda") -> Params:
+    """Random weights on ``device``; ``generator`` defaults to seed 0 there."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return transformer.init_params(cfg, generator, dev)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    return transformer.init_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int):
+    return transformer.prefill(cfg, params, tokens, max_len)
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: dict, tokens: torch.Tensor):
+    return transformer.decode_step(cfg, params, cache, tokens)
+
+
+def count_params(params: Params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()

@@ -1,0 +1,97 @@
+"""Shared model building blocks: norms, RoPE, activations, init helpers.
+
+Same definitions as the JAX package's ``models/common.py``. Two points where
+a PyTorch habit would be wrong here:
+
+  * the RMSNorm gain is ``1 + w`` with ``w`` initialised to zero, so
+    ``torch.nn.RMSNorm`` (gain ``w``) does not apply;
+  * RoPE rotates split halves (``[x1, x2] -> [x1 cos - x2 sin, x2 cos + x1 sin]``),
+    not interleaved pairs, with angles taken in fp32 from fp32 positions.
+
+``cross_entropy_chunked`` belongs to training and is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with fp32 statistics (weight is a (d,) gain, gemma-style 1+w)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + weight.float())).to(x.dtype)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def activation_fn(name: str):
+    if name in ("silu", "swiglu"):
+        return F.silu
+    if name in ("gelu", "geglu"):
+        return _gelu_tanh
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ----------------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device | str = "cpu") -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    if theta <= 0.0:
+        return x
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., :, None].float() * freqs               # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                          # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Init helpers
+# ----------------------------------------------------------------------------
+
+def dense_init(out: torch.Tensor, generator: torch.Generator,
+               scale: float | None = None) -> torch.Tensor:
+    """Fill ``out`` with a truncated-normal (±3σ) fan-in init; returns ``out``.
+
+    Drawn in fp32 and cast, as the JAX package does; σ is ``scale`` or
+    ``1/sqrt(fan_in)`` with ``fan_in = shape[-2]``. The draws follow the
+    distribution, not the JAX package's bits.
+    """
+    fan_in = out.shape[-2] if out.dim() >= 2 else out.shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    out.copy_(tmp * std)
+    return out
+
+
+def embed_init(out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``out`` with N(0, 0.02) drawn in fp32; returns ``out``."""
+    tmp = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    torch.nn.init.normal_(tmp, 0.0, 1.0, generator=generator)
+    out.copy_(tmp * 0.02)
+    return out
