@@ -3,8 +3,9 @@
 Every node owns a slice of the request stream and serves it with prefill +
 greedy decode; the only collective is the result gather. This module
 supplies the model-backed work function (``ResilientServer._work_fn`` /
-``_work_batch``, with the JAX package's contract) and the CLI. Prefill
-attention goes through the hand-written flash-attention kernel.
+``_work_batch``, with the JAX package's contract) and the CLI. Prefill goes
+through the hand-written kernels: flash attention for the dense and hybrid
+families (windowed for hybrid), the SSD scan for the hybrid and ssm ones.
 
 In this slice ``run(n)`` hands requests out in lock-step rounds: each of
 ``nodes`` nodes takes up to ``batch_per_node`` requests per round. The
@@ -17,6 +18,8 @@ Prompts come from a ``torch.Generator`` seeded 1234 with column 0 set to
 two packages serve different prompts and hence different tokens.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full
 """
 from __future__ import annotations
 
@@ -58,8 +61,9 @@ def greedy_generate(cfg: ModelConfig, params, tokens: torch.Tensor,
 class ResilientServer:
     """Model-backed serving: prefill + greedy decode per micro-batch.
 
-    The model runs with ``use_pallas=True``: prefill attention takes the
-    hand-written kernel on the card (its plain version on the CPU).
+    The model runs with ``use_pallas=True``: prefill attention and the SSD
+    scan take the hand-written kernels on the card (their plain versions on
+    the CPU).
     """
 
     def __init__(self, cfg: ModelConfig, *, nodes: int = 8, prompt_len: int = 32,

@@ -10,7 +10,9 @@ the CPU), and the rest run where their inputs live:
   decode_step(cfg, params, cache, tokens)      -> (logits, cache)
   count_params(params)                         -> int
 
-``train_loss`` comes with the training slice.
+Families: dense and hybrid go to ``transformer``, ssm to ``mamba``; MoE,
+VLM and encoder-decoder raise ``NotImplementedError`` naming their later
+slice. ``train_loss`` comes with the training slice.
 """
 from __future__ import annotations
 
@@ -20,9 +22,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba, transformer
 
 Params = dict[str, Any]
+
+
+def _mod(cfg: ModelConfig):
+    if cfg.family == "ssm":
+        return mamba
+    transformer.check_family(cfg)
+    return transformer
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter pytree's leaves as ``(shape, dtype name)`` pairs."""
+    return _mod(cfg).param_specs(cfg)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
@@ -31,20 +45,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    return transformer.init_params(cfg, generator, dev)
+    return _mod(cfg).init_params(cfg, generator, dev)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
-    return transformer.init_cache(cfg, batch, max_len, resolve_device(device))
+    return _mod(cfg).init_cache(cfg, batch, max_len, resolve_device(device))
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int):
-    return transformer.prefill(cfg, params, tokens, max_len)
+    return _mod(cfg).prefill(cfg, params, tokens, max_len)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict, tokens: torch.Tensor):
-    return transformer.decode_step(cfg, params, cache, tokens)
+    return _mod(cfg).decode_step(cfg, params, cache, tokens)
 
 
 def count_params(params: Params) -> int:

@@ -18,6 +18,18 @@ import torch
 import torch.nn.functional as F
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a config names (``"bfloat16"``, ``"float32"``, ...)."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i``'s parameters as views into the stacked ``(L, ...)`` tensors."""
+    return {name: (layer_params(sub, i) if isinstance(sub, dict) else sub[i])
+            for name, sub in layers.items()}
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm with fp32 statistics (weight is a (d,) gain, gemma-style 1+w)."""
     xf = x.float()

@@ -4,7 +4,9 @@
 numpy arrays (nested dicts, ``layers`` stacked ``(L, ...)``) and returns the
 port's pytree, leaf for leaf and bit for bit. The reference's bf16 leaves
 arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects;
-they travel as their raw 16-bit patterns instead, which is exact.
+they travel as their raw 16-bit patterns instead, which is exact. Each
+leaf's dtype is checked against its own spec (``api.param_specs``): the
+SSM's ``A_log``, ``dt_bias`` and ``D`` are fp32 whatever ``param_dtype``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import param_shapes, torch_dtype
+from repro_torch.models.api import param_specs
+from repro_torch.models.common import torch_dtype
 
 Params = dict[str, Any]
 
@@ -34,23 +37,23 @@ def params_from_reference(cfg: ModelConfig, tree: Params,
     Raises if a key, a shape or a dtype differs from what ``cfg`` implies.
     """
     dev = resolve_device(device)
-    want_dtype = torch_dtype(cfg.param_dtype)
 
-    def walk(shapes: Params, sub: Params, path: str) -> Params:
-        if set(shapes) != set(sub):
+    def walk(specs: Params, sub: Params, path: str) -> Params:
+        if set(specs) != set(sub):
             raise ValueError(f"{path or 'params'}: keys {sorted(sub)} != "
-                             f"expected {sorted(shapes)}")
+                             f"expected {sorted(specs)}")
         out = {}
-        for name, shape in shapes.items():
+        for name, spec in specs.items():
             where = f"{path}/{name}" if path else name
-            if isinstance(shape, dict):
-                out[name] = walk(shape, sub[name], where)
+            if isinstance(spec, dict):
+                out[name] = walk(spec, sub[name], where)
                 continue
+            shape, want = spec[0], torch_dtype(spec[1])
             t = _leaf(np.asarray(sub[name]))
-            if tuple(t.shape) != shape or t.dtype != want_dtype:
+            if tuple(t.shape) != shape or t.dtype != want:
                 raise ValueError(f"{where}: got {tuple(t.shape)} {t.dtype}, "
-                                 f"expected {shape} {want_dtype}")
+                                 f"expected {shape} {want}")
             out[name] = t.to(dev)
         return out
 
-    return walk(param_shapes(cfg), tree, "")
+    return walk(param_specs(cfg), tree, "")

@@ -1,0 +1,108 @@
+"""Mamba-2 language model (attention-free, family='ssm').
+
+The JAX package's ``models/mamba.py`` with its pytree: ``embed``,
+``final_norm`` and ``layers/{norm, ssm/...}``, every leaf under ``layers``
+stacked ``(L, ...)``. Its ``lax.scan`` over layers is a Python loop here.
+
+The cache is ``{"pos": int, "conv": (L, B, K-1, C), "state": (L, B, H, P, N)
+fp32}``, O(1) in sequence length. ``decode_step`` writes each layer's new
+conv window and state into the cache **in place** and returns the same
+tensors, where the JAX package returns fresh arrays; a caller that needs
+the old cache clones it first.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssd as ssd_mod
+from repro_torch.models.common import embed_init, layer_params, rms_norm, torch_dtype
+
+Params = dict[str, Any]
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter pytree's leaves as ``(shape, dtype name)`` pairs."""
+    L, D, dt = cfg.n_layers, cfg.d_model, cfg.param_dtype
+    return {
+        "embed": ((cfg.vocab_size, D), dt),
+        "final_norm": ((D,), dt),
+        "layers": {
+            "norm": ((L, D), dt),
+            "ssm": ssd_mod.ssm_param_specs(cfg, L),
+        },
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device) -> Params:
+    """Random weights drawn on ``device``: the JAX package's distribution, not its bits."""
+    dtype = torch_dtype(cfg.param_dtype)
+    D = cfg.d_model
+    embed = torch.empty((cfg.vocab_size, D), dtype=dtype, device=device)
+    return {
+        "embed": embed_init(embed, generator),
+        "final_norm": torch.zeros((D,), dtype=dtype, device=device),
+        "layers": {
+            "norm": torch.zeros((cfg.n_layers, D), dtype=dtype, device=device),
+            "ssm": ssd_mod.init_ssm_params(cfg, cfg.n_layers, generator, device, dtype),
+        },
+    }
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+
+
+def _logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    # fp32 logits against an fp32 copy of the (tied) embedding, as the reference
+    return hidden.float() @ params["embed"].float().T
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   collect_state: bool = False):
+    """tokens: (B,S). Returns (hidden (B,S,D), per-layer ``SSMCache`` list or None)."""
+    x = _embed(cfg, params, tokens)
+    caches = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(x, lp["norm"], cfg.norm_eps)
+        out, cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
+        x = x + out
+        if collect_state:
+            caches.append(cache)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), (caches if collect_state else None)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device) -> dict:
+    del max_len  # SSM state is O(1) in sequence length
+    return {"pos": 0, **ssd_mod.init_ssm_cache(cfg, cfg.n_layers, batch, device,
+                                               torch_dtype(cfg.dtype))}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            max_len: int) -> tuple[torch.Tensor, dict]:
+    """Run the full prompt, build the decode cache. Returns (last-token logits, cache)."""
+    del max_len
+    hidden, caches = forward_hidden(cfg, params, tokens, collect_state=True)
+    cache = {"pos": tokens.shape[1], **ssd_mod.stack_ssm_caches(caches)}
+    return _logits(params, hidden[:, -1:, :]), cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: dict,
+                tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """tokens: (B, 1). Returns (logits (B,1,V) fp32, cache updated in place)."""
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(x, lp["norm"], cfg.norm_eps)
+        out, new = ssd_mod.mamba_decode_step(
+            cfg, lp["ssm"], h, ssd_mod.SSMCache(conv=cache["conv"][i], state=cache["state"][i]))
+        cache["conv"][i].copy_(new.conv)
+        cache["state"][i].copy_(new.state)
+        x = x + out
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x), {**cache, "pos": cache["pos"] + 1}

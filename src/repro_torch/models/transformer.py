@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, dense and hybrid families.
 
 Parameters keep the JAX package's pytree: nested dicts of tensors, with every
 leaf under ``params["layers"]`` stacked ``(L, ...)`` and weights laid out
@@ -6,14 +6,18 @@ leaf under ``params["layers"]`` stacked ``(L, ...)`` and weights laid out
 layers is a Python loop here.
 
 The KV cache is ``{"pos": int, "k": (L, B, C, K, hd), "v": (L, B, C, K, hd)}``
-as there, with a ring buffer (slot = pos % C) when ``cfg.sliding_window > 0``.
-``decode_step`` writes the new token's K/V into the cache **in place** and
-returns the same tensors, where the JAX package returns fresh arrays; a
-caller that needs the old cache clones it first.
+as there, with a ring buffer (slot = pos % C) when ``cfg.sliding_window > 0``
+(for the hybrid family, ``cfg.hybrid_attn_window``). A hybrid layer runs
+windowed attention and a Mamba-2 block side by side on the same input,
+``x + 0.5 * (attn + ssm)``, and its cache also carries ``conv``
+``(L, B, K-1, C)`` and the fp32 SSD ``state`` ``(L, B, H, P, N)``.
+``decode_step`` writes the new token's K/V, conv window and state into the
+cache **in place** and returns the same tensors, where the JAX package
+returns fresh arrays; a caller that needs the old cache clones it first.
 
 Settings for training or for many devices (``remat``, ``scan_block``,
 ``fsdp_gather``, ``act_shard``) are ignored: on one chip the reference's
-sharding constraints are identity maps. Only the dense family is ported.
+sharding constraints are identity maps. MoE and VLM are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,14 +26,17 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import (
     activation_fn,
     apply_rope,
     dense_init,
     embed_init,
+    layer_params,
     rms_norm,
     softcap,
+    torch_dtype,
 )
 
 Params = dict[str, Any]
@@ -38,53 +45,49 @@ _LATER = {
     "moe": "a later slice (other model families)",
     "vlm": "a later slice (other model families)",
     "encdec": "a later slice (other model families)",
-    "hybrid": "slice 4 (the SSD scan with mamba2 and hymba)",
-    "ssm": "slice 4 (the SSD scan with mamba2 and hymba)",
 }
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for any family but dense."""
-    if cfg.family != "dense" or cfg.is_moe:
+    """Raise ``NotImplementedError`` for any family but dense and hybrid."""
+    if cfg.family not in ("dense", "hybrid") or cfg.is_moe:
         family = "moe" if cfg.is_moe else cfg.family
         if family not in _LATER:
-            raise ValueError(f"unknown family {cfg.family!r}")
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a transformer family")
         raise NotImplementedError(
             f"{cfg.name}: family {family!r} is not ported yet; it comes with "
             f"{_LATER[family]}")
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype a config names (``"bfloat16"``, ``"float32"``, ...)."""
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
-            "float16": torch.float16}[name]
 
 
 # ----------------------------------------------------------------------------
 # init
 # ----------------------------------------------------------------------------
 
-def param_shapes(cfg: ModelConfig) -> Params:
-    """The parameter pytree's leaf shapes (layers stacked on dim 0)."""
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter pytree's leaves as ``(shape, dtype name)`` pairs."""
     check_family(cfg)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
-    mlp = {"w_in": (L, D, F), "w_out": (L, F, D)}
+    dt = cfg.param_dtype
+    mlp = {"w_in": ((L, D, F), dt), "w_out": ((L, F, D), dt)}
     if cfg.gated_mlp():
-        mlp["w_gate"] = (L, D, F)
-    shapes: Params = {
-        "embed": (cfg.vocab_size, D),
-        "final_norm": (D,),
-        "layers": {
-            "attn_norm": (L, D),
-            "mlp_norm": (L, D),
-            "attn": {"wq": (L, D, cfg.q_dim), "wk": (L, D, cfg.kv_dim),
-                     "wv": (L, D, cfg.kv_dim), "wo": (L, cfg.q_dim, D)},
-            "mlp": mlp,
-        },
+        mlp["w_gate"] = ((L, D, F), dt)
+    layers: Params = {
+        "attn_norm": ((L, D), dt),
+        "mlp_norm": ((L, D), dt),
+        "attn": {"wq": ((L, D, cfg.q_dim), dt), "wk": ((L, D, cfg.kv_dim), dt),
+                 "wv": ((L, D, cfg.kv_dim), dt), "wo": ((L, cfg.q_dim, D), dt)},
+        "mlp": mlp,
+    }
+    if cfg.family == "hybrid":
+        layers["ssm"] = ssd_mod.ssm_param_specs(cfg, L)
+    specs: Params = {
+        "embed": ((cfg.vocab_size, D), dt),
+        "final_norm": ((D,), dt),
+        "layers": layers,
     }
     if not cfg.tie_embeddings:
-        shapes["unembed"] = (cfg.vocab_size, D)
-    return shapes
+        specs["unembed"] = ((cfg.vocab_size, D), dt)
+    return specs
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -97,7 +100,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     is one layer's matrix at a time.
     """
     dtype = torch_dtype(cfg.param_dtype)
-    shapes = param_shapes(cfg)
+    specs = param_specs(cfg)
     L = cfg.n_layers
     out_scale = {
         "wo": 1.0 / (cfg.q_dim ** 0.5 * L ** 0.5),
@@ -108,23 +111,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.empty(shape, dtype=dtype, device=device)
 
     layers: Params = {
-        "attn_norm": torch.zeros(shapes["layers"]["attn_norm"], dtype=dtype, device=device),
-        "mlp_norm": torch.zeros(shapes["layers"]["mlp_norm"], dtype=dtype, device=device),
+        "attn_norm": torch.zeros(specs["layers"]["attn_norm"][0], dtype=dtype, device=device),
+        "mlp_norm": torch.zeros(specs["layers"]["mlp_norm"][0], dtype=dtype, device=device),
     }
     for group in ("attn", "mlp"):
         layers[group] = {}
-        for name, shape in shapes["layers"][group].items():
+        for name, (shape, _) in specs["layers"][group].items():
             w = empty(shape)
             for i in range(L):
                 dense_init(w[i], generator, scale=out_scale.get(name))
             layers[group][name] = w
     params: Params = {
-        "embed": embed_init(empty(shapes["embed"]), generator),
-        "final_norm": torch.zeros(shapes["final_norm"], dtype=dtype, device=device),
+        "embed": embed_init(empty(specs["embed"][0]), generator),
+        "final_norm": torch.zeros(specs["final_norm"][0], dtype=dtype, device=device),
         "layers": layers,
     }
+    if cfg.family == "hybrid":
+        layers["ssm"] = ssd_mod.init_ssm_params(cfg, L, generator, device, dtype)
     if not cfg.tie_embeddings:
-        params["unembed"] = embed_init(empty(shapes["unembed"]), generator)
+        params["unembed"] = embed_init(empty(specs["unembed"][0]), generator)
     return params
 
 
@@ -132,18 +137,12 @@ def unembed_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
-def _layer(layers: Params, i: int) -> Params:
-    """Layer ``i``'s parameters as views into the stacked tensors."""
-    return {name: (_layer(sub, i) if isinstance(sub, dict) else sub[i])
-            for name, sub in layers.items()}
-
-
 # ----------------------------------------------------------------------------
 # forward (prefill)
 # ----------------------------------------------------------------------------
 
 def _attn_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, window: int | None = None):
     """Returns (attn_out (B,S,D), k (B,S,K,hd), v (B,S,K,hd))."""
     B, S, _ = h.shape
     q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -151,7 +150,7 @@ def _attn_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, cfg, causal=True)
+    o = attention(q, k, v, cfg, causal=True, window=window)
     return o.reshape(B, S, cfg.q_dim) @ lp["wo"], k, v
 
 
@@ -176,25 +175,34 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    *, collect_kv: bool = False):
     """tokens: (B,S) integer. Returns (hidden (B,S,D), kv or None).
 
-    ``kv`` is ``(k, v)``, each stacked ``(L, B, S, K, hd)``.
+    ``kv`` is ``(k, v, ssm)``: k and v stacked ``(L, B, S, K, hd)``, and for
+    the hybrid family the per-layer ``SSMCache`` list (else None).
     """
     check_family(cfg)
+    hybrid = cfg.family == "hybrid"
+    window = cfg.hybrid_attn_window if hybrid else None
     x = _embed(cfg, params, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    ks, vs = [], []
+    ks, vs, ssm = [], [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = layer_params(params["layers"], i)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        attn_out, k, v = _attn_branch(cfg, lp["attn"], h, positions)
-        x = x + attn_out
+        attn_out, k, v = _attn_branch(cfg, lp["attn"], h, positions, window=window)
+        if hybrid:
+            ssm_out, ssm_cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
+            x = x + 0.5 * (attn_out + ssm_out)
+        else:
+            x = x + attn_out
         h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + _mlp_branch(cfg, lp["mlp"], h2)
         if collect_kv:
             ks.append(k)
             vs.append(v)
+            if hybrid:
+                ssm.append(ssm_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    kv = (torch.stack(ks), torch.stack(vs), ssm if hybrid else None) if collect_kv else None
     return x, kv
 
 
@@ -217,20 +225,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
     check_family(cfg)
     C = cache_len(cfg, max_len)
-    shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.head_dim)
+    L = cfg.n_layers
+    shape = (L, batch, C, cfg.n_kv_heads, cfg.head_dim)
     dtype = torch_dtype(cfg.dtype)
-    return {
+    cache = {
         "pos": 0,
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+    if cfg.family == "hybrid":
+        cache.update(ssd_mod.init_ssm_cache(cfg, L, batch, device, dtype))
+    return cache
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             max_len: int) -> tuple[torch.Tensor, dict]:
     """Run the full prompt, build the decode cache. Returns (last-token logits, cache)."""
     B, S = tokens.shape
-    hidden, (k_all, v_all) = forward_hidden(cfg, params, tokens, collect_kv=True)
+    hidden, (k_all, v_all, ssm) = forward_hidden(cfg, params, tokens, collect_kv=True)
     C = cache_len(cfg, max_len)
     if S >= C:
         # ring layout: slot = pos % C. Roll so absolute position p sits at p % C.
@@ -242,14 +254,20 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         k_cache = torch.nn.functional.pad(k_all, pad)
         v_cache = torch.nn.functional.pad(v_all, pad)
     cache = {"pos": S, "k": k_cache.contiguous(), "v": v_cache.contiguous()}
+    if ssm is not None:
+        cache.update(ssd_mod.stack_ssm_caches(ssm))
     return _logits(cfg, params, hidden[:, -1:, :]), cache
 
 
-def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, lcache: dict,
                   pos: int, valid: torch.Tensor) -> torch.Tensor:
-    """One layer for one new token; writes its K/V into the cache in place."""
+    """One layer for one new token; writes its cache entries in place.
+
+    ``lcache`` holds this layer's views of the stacked cache: ``k``/``v``
+    and, for the hybrid family, ``conv``/``state``.
+    """
     B = x.shape[0]
+    k_cache, v_cache = lcache["k"], lcache["v"]
     C = k_cache.shape[1]
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = (h @ lp["attn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
@@ -263,7 +281,15 @@ def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     v_cache[:, slot] = v[:, 0]
     o = decode_attention(q, k_cache, v_cache, valid,
                          logit_softcap=cfg.attn_logit_softcap)
-    x = x + o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
+    attn_out = o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
+    if cfg.family == "hybrid":
+        ssm_in = ssd_mod.SSMCache(conv=lcache["conv"], state=lcache["state"])
+        ssm_out, ssm_new = ssd_mod.mamba_decode_step(cfg, lp["ssm"], h, ssm_in)
+        lcache["conv"].copy_(ssm_new.conv)
+        lcache["state"].copy_(ssm_new.state)
+        x = x + 0.5 * (attn_out + ssm_out)
+    else:
+        x = x + attn_out
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + _mlp_branch(cfg, lp["mlp"], h2)
 
@@ -272,8 +298,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """tokens: (B, 1). Returns (logits (B,1,V) fp32, cache).
 
-    The cache's K/V tensors are updated in place; the returned dict holds
-    them and the advanced position.
+    The cache's tensors are updated in place; the returned dict holds them
+    and the advanced position.
     """
     check_family(cfg)
     x = _embed(cfg, params, tokens)
@@ -284,9 +310,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
         valid = torch.ones((B, C), dtype=torch.bool, device=x.device)
     else:
         valid = (torch.arange(C, device=x.device) <= pos)[None, :].expand(B, C)
+    names = [n for n in ("k", "v", "conv", "state") if n in cache]
     for i in range(cfg.n_layers):
-        x = _decode_layer(cfg, _layer(params["layers"], i), x,
-                          cache["k"][i], cache["v"][i], pos, valid)
+        x = _decode_layer(cfg, layer_params(params["layers"], i), x,
+                          {n: cache[n][i] for n in names}, pos, valid)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1

@@ -44,7 +44,8 @@ def test_the_check_sees_a_forbidden_import():
     assert imported_roots(tree) & FORBIDDEN == {"repro", "jax"}
 
 
-@pytest.mark.parametrize("rel", ["kernels/flash_attention.py", "kernels/ops.py"])
+@pytest.mark.parametrize("rel", ["kernels/flash_attention.py", "kernels/ssd_scan.py",
+                                 "kernels/ops.py"])
 def test_no_try_around_the_kernel_launch(rel):
     tree = ast.parse((PORT / rel).read_text())
     tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
@@ -54,7 +55,8 @@ def test_no_try_around_the_kernel_launch(rel):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.launch.serve, repro_torch.kernels.ops, "
-            "repro_torch.models.convert, repro_torch.configs\n"
+            "repro_torch.models.convert, repro_torch.configs, "
+            "repro_torch.models.mamba, repro_torch.models.ssd\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
