@@ -7,8 +7,9 @@ From the root of a checkout, with no arguments. It imports only the port
 (``src/repro_torch``), never JAX or the JAX package, and runs, in order:
 
   1. card identity: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build: both kernels (flash attention, SSD scan) from
-     ``src/repro_torch/kernels/csrc`` with one nvcc each, in parallel, timed;
+  2. build: the three CUDA sources (flash attention, SSD scan, the int8
+     absmax/quantize pair) from ``src/repro_torch/kernels/csrc`` with one
+     nvcc each, in parallel, timed;
   3. kernels vs plain, on the card:
      - flash attention over the JAX package's kernel-test cases in f32 (tol
        2e-5) and bf16 (tol 2e-2) and ragged cases; at llama3.2-3b's serving
@@ -23,6 +24,12 @@ From the root of a checkout, with no arguments. It imports only the port
        N=128) path shapes (B=4, S=2048, Q=256, bf16), also with x, B and C
        as strided views into one projection as the model passes them,
        timed with the plain version beside it;
+     - absmax and quantize against their plain versions on the card and
+       ``compress_int8_np`` on the host, bit for bit, over the CPU tests'
+       cases (ties, the reciprocal trap, subnormals, empty), a view off the
+       16-byte grid and a stale scale; then at the runtime's path shape, one
+       f32 tensor of 128,983,488 elements (mamba2-130m's full gradient),
+       timed beside the plain versions and ``vector_norm(ord=inf)``;
   4. models, kernels vs plain: llama3.2-3b and hymba-1.5b at full width cut
      to 2 layers and mamba2-130m at full width and depth, bf16 prefill
      logits with ``use_pallas`` on and off, each held against the same
@@ -39,7 +46,20 @@ From the root of a checkout, with no arguments. It imports only the port
   6. where the time goes: right after the llama3.2-3b and hymba-1.5b serve
      runs, one prefill and one decode step at the serve shape under
      ``torch.profiler``: the device's busy share and the kernels that take
-     most of it.
+     most of it;
+  7. the Legio runtime, this slice's main path: ``Session(16)`` with legions
+     of 4, int8 compression on the cross-legion hop, the torch data plane
+     on the card and examples/transparent_mpi.py's faults (2, 9), (5, 4),
+     (7, 11); ten ``comm.allreduce`` calls over the live ranks, each rank's
+     payload 128,983,488 f32 drawn on the card per (rank, step). Every
+     allreduce must reach every member, 13 ranks must survive, and the
+     absmax and quantize kernels must each have launched once per level-1
+     participant of every step's stage list (counts zeroed just before,
+     read just after). Per-step times, the peak memory and one profiled
+     step follow; then the same script with the plain versions in place of
+     the kernels (byte-identical each step), at 1,048,576 elements against
+     the sim plane on the host (byte-identical results, stages and
+     ``sim_seconds``), and with 1-element payloads (the host's share).
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
@@ -47,6 +67,7 @@ kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -167,6 +188,284 @@ def to_float(tree):
     return tree.float()
 
 
+# ---- the int8 compression hop's kernels (phase 3) and the runtime (phase 7)
+QUANT_SHAPES = [(4,), (130,), (1000,), (64, 257), (3, 5, 7),
+                (1,), (127,), (128,), (129,), (100_003,)]
+GRAD_ELEMS = 128_983_488        # mamba2-130m's parameter count: its full f32 gradient
+RUNTIME_NODES, RUNTIME_LEGION, RUNTIME_STEPS = 16, 4, 10
+RUNTIME_FAULTS = [(2, 9), (5, 4), (7, 11)]   # examples/transparent_mpi.py; 4 is a master
+RUNTIME_SMALL_ELEMS = 1_048_576
+
+
+def quantize_cases(np):
+    """The CPU tests' inputs (tests/test_torch_quantize.py), made with numpy."""
+    cases = {}
+    for shape in QUANT_SHAPES:
+        rng = np.random.default_rng(sum(shape) * 7919 + len(shape))
+        cases[f"normal{shape}"] = (rng.standard_normal(shape) * 3.0).astype(np.float32)
+    cases["zeros"] = np.zeros(32, np.float32)
+    cases["minus_2_5"] = np.float32([-2.5])
+    halves = (np.arange(-127, 127, dtype=np.float32) + np.float32(0.5)) * np.float32(0.125)
+    cases["half_even_ties"] = np.concatenate([np.float32([15.875]), halves])
+    absmax = np.float32(11.6982651)
+    s = np.maximum(absmax, np.float32(1e-12)) / np.float32(127.0)
+    x = ((np.arange(-126, 126, dtype=np.float32) + np.float32(0.5)) * s).astype(np.float32)
+    near = [x]
+    for direction in (np.inf, -np.inf):
+        y = x
+        for _ in range(3):
+            y = np.nextafter(y, np.float32(direction)).astype(np.float32)
+            near.append(y)
+    cases["reciprocal_trap"] = np.concatenate([np.float32([absmax]), *near])
+    tiny = np.random.default_rng(11).uniform(-1, 1, 64).astype(np.float32) * np.float32(1e-39)
+    cases["subnormals_mixed"] = np.concatenate([tiny, np.float32([3.0, -1e-40])])
+    cases["subnormals_only"] = tiny
+    cases["empty"] = np.zeros((0,), np.float32)
+    return cases
+
+
+def twin_int8(np, C, g):
+    """compress_int8_np's (scale, q); for an empty input the reference's
+    empty-input scale 1e-12 / 127 (numpy's max of nothing raises)."""
+    if g.size == 0:
+        return np.float32(1e-12) / np.float32(127.0), np.zeros(g.shape, np.int8)
+    c = C.compress_int8_np(g)
+    return np.float32(c.scale), c.q
+
+
+def quantize_bitwise(torch, np, C, Q, name, g, x):
+    """absmax + scale + quantize through the kernels, through the plain
+    versions on the card, and compress_int8_np on the host: bit for bit."""
+    am_k = Q.absmax_cuda(x)
+    sk = Q.int8_scale(am_k)
+    qk = Q.quantize_int8_cuda(x, sk)
+    am_p = Q.absmax_plain(x)
+    sp = Q.int8_scale(am_p)
+    qp = Q.quantize_plain(x, sp)
+    torch.cuda.synchronize()
+    ts, tq = twin_int8(np, C, g)
+    sk_b, sp_b = sk.cpu().numpy().tobytes(), sp.cpu().numpy().tobytes()
+    qk_n, qp_n = qk.cpu().numpy(), qp.cpu().numpy()
+    ok = (am_k.cpu().numpy().tobytes() == am_p.cpu().numpy().tobytes()
+          and sk_b == sp_b == np.float32(ts).tobytes()
+          and qk_n.tobytes() == qp_n.tobytes() == tq.tobytes() and qk_n.shape == g.shape)
+    err = float(np.abs(qk_n.astype(np.int32) - tq.astype(np.int32)).max()) if g.size else 0.0
+    print(f"[3] quantize {name:<22} n={g.size:<10} absmax {am_k.item():.6e} scale "
+          f"{sk.item():.6e} kernel==plain==numpy twin bitwise: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"quantize kernels disagree with the plain versions or "
+                             f"compress_int8_np: {name}")
+    return err
+
+
+def device_allocs(torch) -> int:
+    """cudaMalloc calls the caching allocator has made so far (0 off the card)."""
+    if not torch.cuda.is_available():
+        return 0
+    return torch.cuda.memory_stats().get("num_device_alloc", 0)
+
+
+def draw_grad(torch, dev, rank, step, n):
+    """One rank's gradient-like payload for one step, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(1_000 * step + rank)
+    return torch.randn(n, generator=gen, device=dev).mul_(1e-3)
+
+
+def runtime_run(torch, P, PM, dev, n, plane, keep=True, sync=True):
+    """The slice's main path: Session(16) with int8 compression and the
+    transparent_mpi fault script, one allreduce over the live ranks a step.
+    Returns (session, per-step records)."""
+    sess = PM.Session(RUNTIME_NODES,
+                      policy=P.LegioPolicy(legion_size=RUNTIME_LEGION, grad_compression="int8",
+                                           data_plane=plane),
+                      injector=P.FaultInjector.at(RUNTIME_FAULTS), device=dev)
+    comm, cl = sess.world, sess.cluster
+    records = []
+    for step in range(RUNTIME_STEPS):
+        t0 = time.perf_counter()
+        sess.advance(step)
+        contributions = {r: draw_grad(torch, dev, r, step, n) for r in cl.live_nodes}
+        if plane == "sim":
+            contributions = {r: v.cpu().numpy() for r, v in contributions.items()}
+        if sync:
+            torch.cuda.synchronize()
+        allocs, modules = device_allocs(torch), set(sys.modules)
+        t1 = time.perf_counter()
+        res = comm.allreduce(contributions)
+        t_host = time.perf_counter()
+        imported = sorted(set(sys.modules) - modules)
+        if sync:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = res.data[comm.members[0]]
+        if len(res.data) != comm.size or any(v is not out for v in res.data.values()):
+            raise AssertionError(f"step {step}: the allreduce did not reach every member")
+        if tuple(out.shape) != (n,):
+            raise AssertionError(f"step {step}: result shape {tuple(out.shape)}")
+        level1 = next(st for st in res.stages if st[0] == "global")
+        records.append(dict(step=step, out=out if keep else None, stages=list(res.stages),
+                            sim_seconds=res.sim_seconds, size=comm.size,
+                            compressed=level1[1], draw_ms=(t1 - t0) * 1e3,
+                            allreduce_ms=(t2 - t1) * 1e3, host_ms=(t_host - t1) * 1e3,
+                            device_allocs=device_allocs(torch) - allocs, imported=imported))
+        del contributions
+    if cl.topo.depth != 2:
+        raise AssertionError(f"expected a two-level topology, got depth {cl.topo.depth}")
+    return sess, records
+
+
+@contextlib.contextmanager
+def plain_quantize(ops, Q):
+    """Within the block the data plane's compression runs the kernels' plain
+    versions on CUDA tensors: the second run the runtime phase compares."""
+    saved = ops.absmax, ops.quantize_int8
+    ops.absmax, ops.quantize_int8 = Q.absmax_plain, Q.quantize_plain
+    try:
+        yield
+    finally:
+        ops.absmax, ops.quantize_int8 = saved
+
+
+def quantize_phase(torch, np, C, Q, dev) -> dict:
+    """Phase 3 for the compression hop: absmax and quantize on the card
+    against their plain versions on the card and compress_int8_np on the
+    host, bit for bit, over the CPU tests' cases, a view off the 16-byte
+    grid (the scalar loop) and a stale scale (the clip); then the path shape,
+    timed. Returns each kernel's record for the kernels line."""
+    cases = quantize_cases(np)
+    for name, g in cases.items():
+        quantize_bitwise(torch, np, C, Q, name, g, torch.from_numpy(g.copy()).to(dev))
+    g = cases["normal(100003,)"]
+    shifted = torch.from_numpy(np.concatenate([np.float32([0.0]), g])).to(dev)[1:]
+    quantize_bitwise(torch, np, C, Q, "view_off_16_bytes", g, shifted)
+    x = torch.from_numpy(g).to(dev)
+    stale = Q.int8_scale(Q.absmax_plain(x) * 0.01)
+    s_host = stale.cpu().numpy()
+    want = np.clip(np.round(g / s_host), -127, 127).astype(np.int8).tobytes()
+    clip_ok = (Q.quantize_int8_cuda(x, stale).cpu().numpy().tobytes() == want
+               == Q.quantize_plain(x, stale).cpu().numpy().tobytes())
+    print(f"[3] quantize stale scale (values past +-127 scales) kernel==plain==numpy "
+          f"bitwise: {'ok' if clip_ok else 'FAIL'}")
+    if not clip_ok:
+        raise AssertionError("quantize kernel clips differently from its plain version")
+
+    xg = draw_grad(torch, dev, 0, 0, GRAD_ELEMS)
+    quant_err = quantize_bitwise(torch, np, C, Q, "path_shape", xg.cpu().numpy(), xg)
+    absmax_err = (Q.absmax_cuda(xg) - Q.absmax_plain(xg)).abs().item()
+    inf_norm = lambda: torch.linalg.vector_norm(xg, ord=float("inf"))  # noqa: E731
+    if inf_norm().item() != Q.absmax_cuda(xg).item():
+        raise AssertionError("vector_norm(inf) and the absmax kernel disagree")
+    scale = Q.int8_scale(Q.absmax_cuda(xg))
+    quant_times = dict(
+        absmax=(time_ms(torch, lambda: Q.absmax_cuda(xg), runs=20, reps=20),
+                time_ms(torch, lambda: Q.absmax_plain(xg), runs=10, reps=5),
+                time_ms(torch, inf_norm, runs=20, reps=20)),
+        quantize_int8=(time_ms(torch, lambda: Q.quantize_int8_cuda(xg, scale), runs=20, reps=20),
+                       time_ms(torch, lambda: Q.quantize_plain(xg, scale), runs=10, reps=5),
+                       None))
+    n_bytes = {"absmax": 4 * GRAD_ELEMS, "quantize_int8": 5 * GRAD_ELEMS}
+    n_ops = {"absmax": 2 * GRAD_ELEMS, "quantize_int8": 5 * GRAD_ELEMS}   # |x|, max / div, round, 2 clips, cast
+    quant_records = {}
+    for name, (kernel_ms, plain_ms, library_ms) in quant_times.items():
+        bound_ms, bound_by = bound(n_ops[name] / PEAK_FP32_FLOPS, n_bytes[name])
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        print(f"[3] {name} path shape f32 ({GRAD_ELEMS},): kernel_ms {kernel_ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms {lib} bound_ms {bound_ms:.4f} ({bound_by}; "
+              f"{n_bytes[name]} B) kernel GB/s {n_bytes[name] / kernel_ms / 1e6:.1f}")
+        quant_records[name] = dict(max_abs_err=absmax_err if name == "absmax" else quant_err,
+                                   ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=library_ms)
+    print("[3] quantize_int8 library_ms none: no one PyTorch call computes it "
+          "(torch.quantize_per_tensor clamps to -128 and multiplies by 1/scale)")
+    del xg, x, shifted
+    torch.cuda.empty_cache()
+    return quant_records
+
+
+def runtime_phase(torch, P, PM, ops, Q, dev, counters) -> dict:
+    """Phase 7, the slice's main path: the Legio runtime at full size with
+    every kernel's count zeroed just before and read just after; then the
+    same script with the plain versions (byte-identical per step), at
+    1,048,576 elements against the sim plane on the host, and with
+    1-element payloads (the host's share). Returns the main path's counts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    sess, kernel_run = runtime_run(torch, P, PM, dev, GRAD_ELEMS, "torch")
+    torch.cuda.synchronize()
+    rt_launches = {name: fn.launches for name, fn in counters.items()}
+    rt_peak = torch.cuda.max_memory_allocated()
+    compressed = sum(r["compressed"] for r in kernel_run)
+    for r in kernel_run:
+        finite = bool(torch.isfinite(r["out"]).all())
+        print(f"[7] step {r['step']}: {r['size']} ranks, draw {r['draw_ms']:.3f} ms, allreduce "
+              f"{r['allreduce_ms']:.3f} ms (wall, card synchronised; the call returned to the "
+              f"host after {r['host_ms']:.3f} ms, {r['device_allocs']} new device "
+              f"allocations, {len(r['imported'])} modules imported {r['imported'][:4]}), "
+              f"level-1 participants "
+              f"{r['compressed']}, stages {len(r['stages'])}, sim_seconds {r['sim_seconds']!r} "
+              f"(the alpha-beta model's estimate at the reference's link constants, not a "
+              f"card measurement), finite {finite}")
+        if not finite:
+            raise AssertionError(f"runtime step {r['step']}: non-finite result")
+    print(f"[7] runtime launches {json.dumps(rt_launches)}; level-1 participants summed over "
+          f"steps {compressed}; peak memory {rt_peak / 2**30:.2f} GiB ({rt_peak} B)")
+    want = {"flash_attention": 0, "ssd_scan": 0, "absmax": compressed,
+            "quantize_int8": compressed}
+    if rt_launches != want or compressed == 0:
+        raise AssertionError(f"runtime launches {rt_launches}, expected {want}")
+    if kernel_run[-1]["size"] != 13 or sess.world.size != 13:
+        raise AssertionError(f"expected 13 survivors, got {sess.world.size}")
+    print(f"[7] {RUNTIME_STEPS} allreduces of {GRAD_ELEMS} f32 per rank completed, "
+          f"{sess.world.size} of {RUNTIME_NODES} ranks survive")
+
+    def runtime_step():
+        sess.advance()
+        sess.world.allreduce({r: draw_grad(torch, dev, r, sess.step, GRAD_ELEMS)
+                              for r in sess.cluster.live_nodes})
+
+    busy_ms, wall_ms, top = profile_step(torch, runtime_step)
+    print(f"[7] one runtime step (13 ranks) under the profiler: wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of wall); top: {top}")
+    del sess
+
+    before = {name: fn.launches for name, fn in counters.items()}
+    with plain_quantize(ops, Q):
+        _, plain_run = runtime_run(torch, P, PM, dev, GRAD_ELEMS, "torch")
+    torch.cuda.synchronize()
+    if any(fn.launches != before[name] for name, fn in counters.items()):
+        raise AssertionError("the plain-version run launched a kernel")
+    same = [torch.equal(a["out"].view(torch.int32), b["out"].view(torch.int32))
+            and a["stages"] == b["stages"] and a["sim_seconds"] == b["sim_seconds"]
+            for a, b in zip(kernel_run, plain_run)]
+    print(f"[7] kernels vs plain versions, full size, per step byte-identical: {same}; the "
+          f"plain-version run (a second session in this process): allreduce ms "
+          f"{[round(r['allreduce_ms'], 3) for r in plain_run]}, returned to the host after "
+          f"{[round(r['host_ms'], 3) for r in plain_run]} ms, modules imported "
+          f"{[len(r['imported']) for r in plain_run]}")
+    if not all(same) or len(same) != RUNTIME_STEPS:
+        raise AssertionError("the runtime through the kernels differs from the plain versions")
+    del kernel_run, plain_run
+    torch.cuda.empty_cache()
+
+    _, small_t = runtime_run(torch, P, PM, dev, RUNTIME_SMALL_ELEMS, "torch")
+    _, small_s = runtime_run(torch, P, PM, dev, RUNTIME_SMALL_ELEMS, "sim")
+    same = [a["out"].cpu().numpy().tobytes() == b["out"].tobytes()
+            and a["stages"] == b["stages"] and a["sim_seconds"] == b["sim_seconds"]
+            for a, b in zip(small_t, small_s)]
+    print(f"[7] torch plane on the card vs sim plane on the host at {RUNTIME_SMALL_ELEMS} "
+          f"elements, per step byte-identical (results, stages, sim_seconds): {same}")
+    if not all(same) or len(same) != RUNTIME_STEPS:
+        raise AssertionError("the torch plane differs from the sim plane")
+    _, tiny = runtime_run(torch, P, PM, dev, 1, "torch", keep=False)
+    host_ms = [r["allreduce_ms"] for r in tiny]
+    print(f"[7] allreduce of 1-element payloads on the card (host control plane plus "
+          f"launches): median {statistics.median(host_ms):.3f} ms, per step "
+          f"{[round(t, 3) for t in host_ms]}")
+    return rt_launches
+
+
 def main() -> int:
     import torch
 
@@ -174,8 +473,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
 
+    import numpy as np
+
+    from repro_torch import core as rt_core, mpi as rt_mpi
     from repro_torch.configs.registry import get_config, get_smoke_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops, quantize
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
@@ -184,6 +486,7 @@ def main() -> int:
     from repro_torch.launch.serve import ResilientServer, greedy_generate
     from repro_torch.models import api
     from repro_torch.models.ssd import ssd_decode_step
+    from repro_torch.optim import compression
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -199,7 +502,7 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib_paths = _build.build(["flash_attention", "ssd_scan"])
+    lib_paths = _build.build(["flash_attention", "ssd_scan", "quantize"])
     print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} "
           f"in {time.perf_counter() - t0:.2f} s")
 
@@ -357,6 +660,8 @@ def main() -> int:
                   ssd_path("mamba2-130m", 4, 2048, 24, 64, 1, 128, 256)]
     torch.cuda.empty_cache()
 
+    quant_records = quantize_phase(torch, np, compression, quantize, dev)
+
     # ---- 4. models: kernels vs plain -------------------------------------
     def model_check(cfg2, batch, seq):
         params = api.init_params(cfg2, torch.Generator(device=dev).manual_seed(0), dev)
@@ -403,7 +708,8 @@ def main() -> int:
 
     # ---- 5. serve at full width ------------------------------------------
     nodes, per_node, n_req, n_dec = 2, 4, 8, 16
-    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda}
+    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
+                "absmax": quantize.absmax_cuda, "quantize_int8": quantize.quantize_int8_cuda}
     launches_by_path = {}
 
     def serve(arch, prompt_len, profile):
@@ -426,7 +732,8 @@ def main() -> int:
         if rep["completed"] != n_req or rep["unserved"]:
             raise AssertionError(f"{arch}: serve incomplete: {rep}")
         expect = {"flash_attention": cfg.family in ("dense", "hybrid"),
-                  "ssd_scan": cfg.family in ("hybrid", "ssm")}
+                  "ssd_scan": cfg.family in ("hybrid", "ssm"),
+                  "absmax": False, "quantize_int8": False}
         for name, used in expect.items():
             want = cfg.n_layers * rep["batches"] if used else 0
             if launches[name] != want or (used and want == 0):
@@ -469,6 +776,10 @@ def main() -> int:
     serve("hymba-1.5b", 2048, profile=True)
     torch.cuda.empty_cache()
     serve("mamba2-130m", 2048, profile=False)
+    torch.cuda.empty_cache()
+
+    # ---- 7. the Legio runtime at full size: the slice's main path --------
+    rt_launches = runtime_phase(torch, rt_core, rt_mpi, ops, quantize, dev, counters)
 
     def entry(name, replaces, shapes):
         """One kernel's record at the slice's main path (hymba-1.5b): its shape,
@@ -483,9 +794,19 @@ def main() -> int:
                                         "bound_by", "library_ms")},
                 "shape": main["shape"], "shapes": shapes}
 
+    def quant_entry(name, replaces):
+        """One compression-hop kernel's record: the runtime phase's launches,
+        the path shape's numbers."""
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/quantize.cu", "replaces": replaces,
+                "launches": rt_launches[name], **quant_records[name],
+                "shape": f"f32 ({GRAD_ELEMS},)"}
+
     record = {"kernels": [
         entry("flash_attention", "src/repro/kernels/flash_attention.py:113", flash_shapes),
         entry("ssd_scan", "src/repro/kernels/ssd_scan.py:100", ssd_shapes),
+        quant_entry("absmax", "src/repro/kernels/quantize.py:72"),
+        quant_entry("quantize_int8", "src/repro/kernels/quantize.py:88"),
     ]}
     print(card_line())
     print(json.dumps(record))

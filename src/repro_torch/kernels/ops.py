@@ -1,7 +1,7 @@
 """Public kernel entry points, dispatched on where the tensors live.
 
-For CUDA tensors ``flash_attention`` and ``ssd_scan`` launch the
-hand-written kernels; for CPU tensors they run the kernels' plain PyTorch
+For CUDA tensors ``flash_attention``, ``ssd_scan``, ``absmax`` and
+``quantize_int8`` launch the hand-written kernels; for CPU tensors they run the kernels' plain PyTorch
 versions (the counterpart of the JAX package's Pallas ``interpret=True`` on
 CPU). They never fall back from one to the other: a CUDA launch that fails
 raises.
@@ -13,6 +13,12 @@ import torch
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
+)
+from repro_torch.kernels.quantize import (
+    absmax_cuda,
+    absmax_plain,
+    quantize_int8_cuda,
+    quantize_plain,
 )
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
@@ -40,3 +46,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, **kwargs)
     raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {x.device}")
+
+
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """``max |x|`` of an f32 tensor as a 0-d f32 tensor on x's device."""
+    if x.device.type == "cuda":
+        return absmax_cuda(x)
+    if x.device.type == "cpu":
+        return absmax_plain(x)
+    raise ValueError(f"absmax runs on CUDA or CPU tensors, not {x.device}")
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale), -127, 127)`` as int8; scale a 0-d f32 tensor on x's device."""
+    if x.device.type == "cuda":
+        return quantize_int8_cuda(x, scale)
+    if x.device.type == "cpu":
+        return quantize_plain(x, scale)
+    raise ValueError(f"quantize_int8 runs on CUDA or CPU tensors, not {x.device}")

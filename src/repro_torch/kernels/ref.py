@@ -6,12 +6,15 @@ The same functions as the JAX package's ``kernels/ref.py``:
     sliding-window masks, logit softcap and query offset, through the
     port's ``mha_reference``;
   * ``ssd_scan_ref`` — the chunked SSD recurrence, through the port's
-    ``ssd_chunked_reference``.
+    ``ssd_chunked_reference``;
+  * ``absmax_ref`` / ``quantize_int8_ref`` — the int8 compression hop's two
+    passes, the plain versions in ``kernels/quantize.py``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.quantize import absmax_plain, quantize_plain
 from repro_torch.models.attention import mha_reference
 from repro_torch.models.ssd import ssd_chunked_reference
 
@@ -31,3 +34,11 @@ def ssd_scan_ref(
 ):
     return ssd_chunked_reference(x, dt, A, Bm, Cm, chunk=chunk,
                                  initial_state=initial_state)
+
+
+def absmax_ref(x: torch.Tensor) -> torch.Tensor:
+    return absmax_plain(x)
+
+
+def quantize_int8_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return quantize_plain(x, scale)

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
 Every module under ``src/repro_torch/`` and ``chip_smoke.py`` is parsed and
-its imports checked; the kernel wrapper and its dispatch must not catch
-around the launch (a failed launch raises, it never falls back).
+its imports checked; the kernel wrappers, their dispatch and the data
+plane's compression path must not catch around a launch (a failed launch
+raises, it never falls back).
 """
 import ast
 import os
@@ -45,7 +46,8 @@ def test_the_check_sees_a_forbidden_import():
 
 
 @pytest.mark.parametrize("rel", ["kernels/flash_attention.py", "kernels/ssd_scan.py",
-                                 "kernels/ops.py"])
+                                 "kernels/quantize.py", "kernels/ops.py",
+                                 "optim/compression.py", "dist/dataplane.py"])
 def test_no_try_around_the_kernel_launch(rel):
     tree = ast.parse((PORT / rel).read_text())
     tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
@@ -56,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch.launch.serve, repro_torch.kernels.ops, "
             "repro_torch.models.convert, repro_torch.configs, "
-            "repro_torch.models.mamba, repro_torch.models.ssd\n"
+            "repro_torch.models.mamba, repro_torch.models.ssd, "
+            "repro_torch.core, repro_torch.mpi, repro_torch.dist.dataplane, "
+            "repro_torch.checkpoint, repro_torch.optim, repro_torch.data\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
