@@ -1,29 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an H100 is the target).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1-3 for flash and SSD, then stop
 
-From the root of a checkout, with no arguments. It imports only the port
-(``src/repro_torch``), never JAX or the JAX package, and runs, in order:
+From the root of a checkout. It imports only the port (``src/repro_torch``),
+never JAX or the JAX package, and runs, in order:
 
   1. card identity: ``nvidia-smi`` name and power limit, torch's device name;
   2. build: the three CUDA sources (flash attention, SSD scan, the int8
      absmax/quantize pair) from ``src/repro_torch/kernels/csrc`` with one
-     nvcc each, in parallel, timed;
+     nvcc each, in parallel, timed, with each kernel's ptxas registers and
+     spills;
   3. kernels vs plain, on the card:
+     - first one tile of the wgmma flash kernel (Sq = Sk = 128, hd 64 and
+       128, causal and not): a swizzle or descriptor fault shows here, and
+       a launch that has not finished within a minute exits with code 3;
      - flash attention over the JAX package's kernel-test cases in f32 (tol
-       2e-5) and bf16 (tol 2e-2) and ragged cases; at llama3.2-3b's serving
-       shape (B=4, S=1024, H=24, K=8, hd=128, causal) and at hymba-1.5b's
-       (B=4, S=2048, H=25, K=5, hd=64, causal, window 1024), both bf16,
-       where it also times the kernel, the plain version and one
-       ``scaled_dot_product_attention`` call;
-     - the SSD scan over the JAX package's kernel-test sweep in f32 (tol
-       2e-4) and bf16 (tol 3e-2) with h0, S = 40 at chunk 16 against the
+       2e-5) and bf16 (tol 2e-2), ragged cases and cases at the wgmma
+       kernel's tiles (a window that starts inside a tile with q_offset,
+       softcap, ragged cross attention), each naming the kernel the
+       head-dim rule picks; at llama3.2-3b's serving shape (B=4, S=1024,
+       H=24, K=8, hd=128, causal) and at hymba-1.5b's (B=4, S=2048, H=25,
+       K=5, hd=64, causal, window 1024), both bf16, where it also times the
+       kernel, the plain version and one ``scaled_dot_product_attention``
+       call;
+     - the SSD scan over the JAX package's kernel-test sweep and a case with
+       P and N off the 16-byte grid in f32 (tol 2e-4) and bf16 (tol 3e-2)
+       with h0, S = 40 at chunk 16 against the
        token-by-token ``ssd_decode_step`` loop, the two-call state handoff,
        and hymba-1.5b's (H=50, P=64, N=16) and mamba2-130m's (H=24, P=64,
-       N=128) path shapes (B=4, S=2048, Q=256, bf16), also with x, B and C
-       as strided views into one projection as the model passes them,
-       timed with the plain version beside it;
+       N=128) path shapes (B=4, S=2048, Q=256, bf16; mamba2's also in f32),
+       also with x, B and C as strided views into one projection as the
+       model passes them, timed with the plain version beside it and one
+       call under the profiler (the time of each of its launches);
      - absmax and quantize against their plain versions on the card and
        ``compress_int8_np`` on the host, bit for bit, over the CPU tests'
        cases (ties, the reciprocal trap, subnormals, empty), a view off the
@@ -43,8 +53,8 @@ From the root of a checkout, with no arguments. It imports only the port
      prefill on the paths that run it (launch counts zeroed just before
      each run and read just after); each model's server is freed before
      the next one is built, so each peak memory is that model's own;
-  6. where the time goes: right after the llama3.2-3b and hymba-1.5b serve
-     runs, one prefill and one decode step at the serve shape under
+  6. where the time goes: right after each model's serve run, one prefill
+     and one decode step at the serve shape under
      ``torch.profiler``: the device's busy share and the kernels that take
      most of it;
   7. the Legio runtime, this slice's main path: ``Session(16)`` with legions
@@ -63,12 +73,17 @@ From the root of a checkout, with no arguments. It imports only the port
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
-kernels' JSON record and ``{"ok": true, "device": {...}}``.
+kernels' JSON record (each kernel's time, bound and share of the bound)
+and ``{"ok": true, "device": {...}}``; ``--kernels-only`` prints neither of
+the last two.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -79,6 +94,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense tf32 tensor-core peak
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 on the CUDA cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}        # flash attention (the reference's)
@@ -91,6 +107,7 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}    # SSD scan (the reference's)
 # the max: the max of many noisy logits is an extreme value that moves from
 # run to run.
 MODEL_RMS_RATIO = 2.0
+FIRST_LAUNCH_TIMEOUT_S = 60   # a new kernel's first launch: longer means a hang
 
 
 def card_line() -> str:
@@ -123,6 +140,48 @@ def time_ms(torch, fn, runs: int, reps: int = 1, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def wait_or_exit(torch, what: str, timeout_s: float = FIRST_LAUNCH_TIMEOUT_S) -> None:
+    """Wait for the card's queue without blocking on it; if the work has not
+    finished within ``timeout_s`` (a kernel that hangs), exit with code 3."""
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        if time.perf_counter() - t0 > timeout_s:
+            print(f"chip_smoke: {what} did not finish within {timeout_s} s", file=sys.stderr,
+                  flush=True)
+            os._exit(3)
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'kernel: registers, spills' for each kernel ptxas reports in ``log``."""
+    lines, name, prev = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            spills = re.findall(r"(\d+) bytes spill (stores|loads)", prev)
+            spill = ", ".join(f"{n} B {kind}" for n, kind in spills) or "none"
+            lines.append(f"{demangle(name)}: {m.group(1)} registers, spills {spill}")
+            name = None
+        elif "warning" in line or "Performance Loss" in line:
+            lines.append(line.strip())
+        prev = line
+    return lines
+
+
+def demangle(name: str) -> str:
+    """``c++filt``'s reading of a symbol where the tool is there, else the symbol."""
+    if shutil.which("c++filt") is None:
+        return name
+    out = subprocess.run(["c++filt", name], capture_output=True, text=True, timeout=10)
+    return out.stdout.strip() or name
+
+
 def live_pairs(Sq: int, Sk: int, causal: bool, window: int, q_offset: int) -> int:
     """(query, key) pairs the mask lets through: the work this input needs."""
     total = 0
@@ -136,7 +195,7 @@ def live_pairs(Sq: int, Sk: int, causal: bool, window: int, q_offset: int) -> in
 
 def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int,
               has_h0: bool) -> tuple[int, int]:
-    """Multiply-adds (x2) the SSD scan needs, as (C.B^T, the rest): per chunk
+    """Multiply-adds (x2) of the SSD scan, as (C.B^T counted per head, the rest): per chunk
     of r real rows, the lower triangle of C.B^T (N deep; both operands in
     x's dtype) and of W.x (P wide), C.h^T (skipped for the first chunk when
     the state starts at zero) and the state update (each with an fp32
@@ -374,7 +433,8 @@ def quantize_phase(torch, np, C, Q, dev) -> dict:
               f"{n_bytes[name]} B) kernel GB/s {n_bytes[name] / kernel_ms / 1e6:.1f}")
         quant_records[name] = dict(max_abs_err=absmax_err if name == "absmax" else quant_err,
                                    ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=bound_by, library_ms=library_ms)
+                                   bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+                                   library_ms=library_ms)
     print("[3] quantize_int8 library_ms none: no one PyTorch call computes it "
           "(torch.quantize_per_tensor clamps to -128 and multiplies by 1/scale)")
     del xg, x, shifted
@@ -466,8 +526,10 @@ def runtime_phase(torch, P, PM, ops, Q, dev, counters) -> dict:
     return rt_launches
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
+
+    kernels_only = "--kernels-only" in argv  # phases 1-3 for flash and SSD, then stop
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -481,8 +543,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
+        kernel_for,
     )
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import CB_MIN_STATE, ssd_scan_cuda, ssd_scan_plain
     from repro_torch.launch.serve import ResilientServer, greedy_generate
     from repro_torch.models import api
     from repro_torch.models.ssd import ssd_decode_step
@@ -505,6 +568,9 @@ def main() -> int:
     lib_paths = _build.build(["flash_attention", "ssd_scan", "quantize"])
     print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} "
           f"in {time.perf_counter() - t0:.2f} s")
+    for name, log in sorted(_build.build_logs.items()):
+        for line in ptxas_summary(log):
+            print(f"[2] ptxas {name}: {line}")
 
     # ---- 3. kernels vs plain on the card ---------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -525,6 +591,17 @@ def main() -> int:
             raise AssertionError(f"kernel disagrees with its plain version: {name} {dtype}")
         return err.max().item()
 
+    # one tile of the wgmma kernel first (Sq = Sk = 128, one block per head):
+    # a swizzle or descriptor fault shows here, and a hang exits after a minute
+    for hd in (64, 128):
+        for kw in (dict(causal=False), dict(causal=True)):
+            q, k, v = qkv(1, 128, 128, 2, 1, hd, "bfloat16")
+            out = flash_attention_cuda(q, k, v, **kw)
+            wait_or_exit(torch, f"the flash kernel's single tile (hd={hd}, {kw})")
+            check(f"single_tile_hd{hd}_{'causal' if kw['causal'] else 'full'} "
+                  f"({kernel_for(q.dtype, hd)})", "bfloat16", out,
+                  flash_attention_plain(q, k, v, **kw))
+
     cases = [  # name, (B, Sq, Sk, H, K, hd), kwargs
         ("mha_causal", (1, 128, 128, 4, 4, 32), dict(causal=True)),
         ("gqa_4x", (2, 128, 128, 8, 2, 32), dict(causal=True)),
@@ -537,19 +614,28 @@ def main() -> int:
         ("hd_256", (1, 256, 256, 4, 2, 256), dict(causal=True)),
         ("hd_24_ragged_window", (1, 100, 100, 6, 2, 24), dict(causal=True, window=40)),
         ("ragged_1000", (2, 1000, 1000, 8, 2, 128), dict(causal=True)),
+        # the wgmma kernel's tiles (bf16, hd 64 or 128): a window that starts
+        # inside a 128-key tile with q_offset > 0 (the first live tile is fully
+        # masked for the block's last rows), softcap, ragged cross attention
+        ("window_qoffset_hd64", (1, 128, 384, 4, 2, 64),
+         dict(causal=True, window=100, q_offset=256)),
+        ("softcap_hd128", (2, 256, 256, 4, 2, 128), dict(causal=True, logit_softcap=30.0)),
+        ("cross_ragged_hd128", (2, 200, 333, 8, 2, 128), dict(causal=False)),
+        ("ragged_window_hd64", (2, 1000, 1000, 5, 1, 64), dict(causal=True, window=300)),
     ]
     for dtype in ("float32", "bfloat16"):
         for name, shape, kw in cases:
             q, k, v = qkv(*shape, dtype)
-            check(name, dtype, flash_attention_cuda(q, k, v, **kw),
-                  flash_attention_plain(q, k, v, **kw))
+            check(f"{name} ({kernel_for(q.dtype, shape[-1])})", dtype,
+                  flash_attention_cuda(q, k, v, **kw), flash_attention_plain(q, k, v, **kw))
         # tiling invariance: two query halves with q_offset == the whole
-        q, k, v = qkv(1, 256, 256, 4, 2, 32, dtype)
-        whole = flash_attention_cuda(q, k, v, causal=True)
-        halves = torch.cat([flash_attention_cuda(q[:, :128].contiguous(), k, v, causal=True),
-                            flash_attention_cuda(q[:, 128:].contiguous(), k, v, causal=True,
-                                                 q_offset=128)], dim=1)
-        check("split_q_invariance", dtype, halves, whole)
+        for hd in (32, 128):
+            q, k, v = qkv(1, 256, 256, 4, 2, hd, dtype)
+            whole = flash_attention_cuda(q, k, v, causal=True)
+            halves = torch.cat([flash_attention_cuda(q[:, :128].contiguous(), k, v, causal=True),
+                                flash_attention_cuda(q[:, 128:].contiguous(), k, v, causal=True,
+                                                     q_offset=128)], dim=1)
+            check(f"split_q_invariance_hd{hd} ({kernel_for(q.dtype, hd)})", dtype, halves, whole)
 
     def flash_path(label, B, S, H, K, hd, window):
         """Check and time the flash kernel at a serving path's shape (bf16, causal)."""
@@ -572,14 +658,18 @@ def main() -> int:
         flops = 4 * hd * live_pairs(S, S, True, window, 0) * B * H
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
         bound_ms, bound_by = bound(flops / PEAK_BF16_FLOPS, nbytes)
+        kernel = kernel_for(q.dtype, hd)
         print(f"[3] flash path shape {label} B={B} S={S} H={H} K={K} hd={hd} bf16 causal "
-              f"window={window}: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-              f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) kernel TFLOP/s "
-              f"{flops / kernel_ms / 1e9:.1f} sdpa_vs_kernel_max_abs {lib_err:.3e}")
+              f"window={window} ({kernel} kernel): kernel_ms {kernel_ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms {library_ms:.4f} (kernel/library "
+              f"{kernel_ms / library_ms:.3f}) bound_ms {bound_ms:.4f} ({bound_by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) share of bound "
+              f"{bound_ms / kernel_ms:.3f} kernel TFLOP/s {flops / kernel_ms / 1e9:.1f} "
+              f"sdpa_vs_kernel_max_abs {lib_err:.3e}")
         return dict(shape=f"{label}: B={B} S={S} H={H} K={K} hd={hd} bf16 causal window={window}",
-                    max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=library_ms)
+                    kernel=kernel, max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+                    library_ms=library_ms)
 
     flash_shapes = [flash_path("llama3.2-3b", 4, 1024, 24, 8, 128, 0),
                     flash_path("hymba-1.5b", 4, 2048, 25, 5, 64, 1024)]
@@ -599,7 +689,9 @@ def main() -> int:
                    check(f"{name}_state", dtype, got[1], want[1], tol))
 
     sweep = [(2, 128, 4, 16, 2, 32, 32), (1, 256, 8, 32, 2, 64, 64),
-             (1, 64, 4, 16, 1, 32, 64), (2, 96, 4, 16, 4, 32, 32)]
+             (1, 64, 4, 16, 1, 32, 64), (2, 96, 4, 16, 4, 32, 32),
+             # P and N off the 16-byte grid: the kernels' one-element loads
+             (1, 96, 4, 10, 2, 18, 32)]
     for dtype in ("float32", "bfloat16"):
         for B, S, H, P, G, N, Q in sweep:
             x, dt, A, Bm, Cm, h0 = ssd_inputs(B, S, H, P, G, N, dtype)
@@ -623,42 +715,68 @@ def main() -> int:
     ssd_check("ssd_state_handoff", "float32", (torch.cat([y1, y2], 1), h2),
               ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=32), tol=1e-4)
 
-    def ssd_path(label, B, S, H, P, G, N, Q):
-        """Check and time the SSD kernel at a serving path's shape (bf16, h0 = 0 as in prefill)."""
-        x, dt, A, Bm, Cm, _ = ssd_inputs(B, S, H, P, G, N, "bfloat16", with_h0=False)
+    def ssd_path(label, B, S, H, P, G, N, Q, dtype="bfloat16"):
+        """Check and time the SSD kernel at a serving path's shape (h0 = 0 as in prefill)."""
+        x, dt, A, Bm, Cm, _ = ssd_inputs(B, S, H, P, G, N, dtype, with_h0=False)
         out = ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q)
         plain = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q)
-        err = ssd_check(f"ssd_path_{label}", "bfloat16", out, plain)
+        err = ssd_check(f"ssd_path_{label}", dtype, out, plain)
         # the model's layout: x, B and C as strided views into one projection
         xbc = torch.cat([x.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
                          Cm.reshape(B, S, G * N)], dim=-1)
         xv, bv, cv = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
-        ssd_check(f"ssd_path_{label}_views", "bfloat16",
+        ssd_check(f"ssd_path_{label}_views", dtype,
                   ssd_scan_cuda(xv.reshape(B, S, H, P), dt, A, bv.reshape(B, S, G, N),
                                 cv.reshape(B, S, G, N), chunk=Q), plain)
         del xbc, xv, bv, cv
         kernel_ms = time_ms(torch, lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q),
                             runs=20, reps=20)
         plain_ms = time_ms(torch, lambda: ssd_scan_plain(x, dt, A, Bm, Cm, chunk=Q), runs=10)
+        busy_ms, _, top = profile_step(torch, lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=Q))
+        print(f"[3] ssd {label} {dtype} one call under the profiler: device {busy_ms:.4f} ms; "
+              f"by kernel: {top}")
         cb_flops, rest_flops = ssd_flops(B, S, H, P, N, Q, has_h0=False)
-        flops = cb_flops + rest_flops
+        # the work the function needs forms C.B^T once per group: its heads share it
+        cb_needed = cb_flops * G // H
+        flops = cb_needed + rest_flops
         nbytes = sum(t.numel() * t.element_size() for t in (x, dt, A, Bm, Cm, *out))
-        # C.B^T multiplies two bf16 operands (exact products, fp32 sums): the
-        # bf16 tensor-core peak; the products with an fp32 operand: the fp32 peak
-        bound_ms, bound_by = bound(cb_flops / PEAK_BF16_FLOPS + rest_flops / PEAK_FP32_FLOPS,
-                                   nbytes)
-        print(f"[3] ssd path shape {label} B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} bf16: "
-              f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms none "
-              f"bound_ms {bound_ms:.4f} ({bound_by}; C.B^T {cb_flops / 1e9:.2f} GFLOP at the "
-              f"bf16 peak, the rest {rest_flops / 1e9:.2f} GFLOP at the fp32 peak, "
-              f"{nbytes / 1e6:.2f} MB) kernel TFLOP/s {flops / kernel_ms / 1e9:.2f}")
-        return dict(shape=f"{label}: B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} bf16",
+        # each product at the peak of the precision the kernels run it in: for
+        # bf16 inputs C.B^T (two bf16 operands) as bf16, the products with an
+        # fp32 operand as one tf32 product; for fp32 inputs every product as
+        # three tf32 products (3xTF32)
+        if dtype == "bfloat16":
+            op_s = cb_needed / PEAK_BF16_FLOPS + rest_flops / PEAK_TF32_FLOPS
+            priced = "C.B^T once per group at the bf16 peak, the rest at the tf32 peak"
+        else:
+            op_s = 3 * flops / PEAK_TF32_FLOPS
+            priced = "C.B^T once per group; every product as 3 tf32 products"
+        bound_ms, bound_by = bound(op_s, nbytes)
+        # the first port's pricing (C.B^T per head, fp32-operand products on the CUDA cores)
+        fp32_bound_ms, _ = bound(cb_flops / PEAK_BF16_FLOPS + rest_flops / PEAK_FP32_FLOPS,
+                                 nbytes)
+        device_launches = 4 if N >= CB_MIN_STATE else 3
+        print(f"[3] ssd path shape {label} B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} {dtype}: "
+              f"kernel_ms {kernel_ms:.4f} ({device_launches} device launches) plain_ms "
+              f"{plain_ms:.4f} "
+              f"library_ms none bound_ms {bound_ms:.4f} ({bound_by}; {priced}; C.B^T "
+              f"{cb_needed / 1e9:.3f} GFLOP, the rest {rest_flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB) share of bound {bound_ms / kernel_ms:.3f}; bound with "
+              f"the rest at the fp32 CUDA-core peak {fp32_bound_ms:.4f}; kernel TFLOP/s "
+              f"{flops / kernel_ms / 1e9:.2f}")
+        return dict(shape=f"{label}: B={B} S={S} H={H} P={P} G={G} N={N} Q={Q} {dtype}",
                     max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=None)
+                    bound_by=bound_by, bound_share=bound_ms / kernel_ms,
+                    bound_ms_fp32_priced=fp32_bound_ms, device_launches_per_call=device_launches,
+                    library_ms=None)
 
     ssd_shapes = [ssd_path("hymba-1.5b", 4, 2048, 50, 64, 1, 16, 256),
-                  ssd_path("mamba2-130m", 4, 2048, 24, 64, 1, 128, 256)]
+                  ssd_path("mamba2-130m", 4, 2048, 24, 64, 1, 128, 256),
+                  ssd_path("mamba2-130m", 4, 2048, 24, 64, 1, 128, 256, dtype="float32")]
     torch.cuda.empty_cache()
+    if kernels_only:
+        print(json.dumps({"kernels_only": {"flash_attention": flash_shapes,
+                                           "ssd_scan": ssd_shapes}}))
+        return 0
 
     quant_records = quantize_phase(torch, np, compression, quantize, dev)
 
@@ -712,7 +830,7 @@ def main() -> int:
                 "absmax": quantize.absmax_cuda, "quantize_int8": quantize.quantize_int8_cuda}
     launches_by_path = {}
 
-    def serve(arch, prompt_len, profile):
+    def serve(arch, prompt_len):
         cfg = get_config(arch)
         server = ResilientServer(cfg, nodes=nodes, prompt_len=prompt_len, decode_tokens=n_dec,
                                  batch_per_node=per_node, device=dev)
@@ -765,17 +883,17 @@ def main() -> int:
                                                  prompt_len + n_dec)),
                  ("decode", lambda: api.decode_step(server.cfg, server.params,
                                                     dict(cache), tok)))
-        for label, step in steps if profile else ():
+        for label, step in steps:
             busy_ms, wall_ms, top = profile_step(torch, step)
             print(f"[6] {arch} {label} (B={per_node}) under the profiler: wall {wall_ms:.3f} "
                   f"ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of wall); "
                   f"top: {top}")
 
-    serve("llama3.2-3b", 1024, profile=True)
+    serve("llama3.2-3b", 1024)
     torch.cuda.empty_cache()
-    serve("hymba-1.5b", 2048, profile=True)
+    serve("hymba-1.5b", 2048)
     torch.cuda.empty_cache()
-    serve("mamba2-130m", 2048, profile=False)
+    serve("mamba2-130m", 2048)
     torch.cuda.empty_cache()
 
     # ---- 7. the Legio runtime at full size: the slice's main path --------
@@ -791,7 +909,7 @@ def main() -> int:
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
                 "launches": by_path["hymba-1.5b"], "launches_by_path": by_path,
                 **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+                                        "bound_by", "library_ms", "bound_share")},
                 "shape": main["shape"], "shapes": shapes}
 
     def quant_entry(name, replaces):
@@ -816,4 +934,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

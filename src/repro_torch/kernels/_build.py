@@ -24,10 +24,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# the compiler's output of each build in this process (ptxas registers, spills)
+build_logs: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -73,6 +75,7 @@ def build(names: list[str]) -> list[Path]:
     failures = []
     for name, target, tmp, proc in procs:
         out, _ = proc.communicate()
+        build_logs[name] = out
         if proc.returncode == 0:
             os.replace(tmp, target)
         else:

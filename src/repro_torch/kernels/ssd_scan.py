@@ -1,12 +1,16 @@
 """Mamba-2 SSD chunked scan: the hand-written Hopper kernel's wrapper and its plain version.
 
 ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu`` (built with ``nvcc`` at first
-use, see ``_build``) on the current CUDA stream. It checks its inputs,
-allocates the outputs, launches, raises if the launch was refused, and
-counts the launch in ``ssd_scan_cuda.launches``. The kernel does all its
-arithmetic in fp32 on the CUDA cores: no operand is rounded to bf16 for a
-product, so bf16 inputs are only widened, and y is rounded once to x's
-dtype at the end.
+use, see ``_build``) on the current CUDA stream. It checks its inputs
+(``launch_plan``), allocates the outputs and the two scratches the source's
+three kernels pass between them, launches, raises if a launch was refused,
+and counts the call in ``ssd_scan_cuda.launches`` (one call is three device
+launches: chunk states, state passing, chunk output; four from
+``CB_MIN_STATE`` on, where C·Bᵀ is formed once per chunk and group, shared
+by the group's heads). For bf16 inputs C·Bᵀ
+runs as a bf16 tensor-core product and the products with an fp32 operand
+as tf32 products; fp32 inputs run every product as 3xTF32 (fp32-grade).
+Sums are fp32, and y is rounded once to x's dtype at the end.
 
 ``ssd_scan_plain`` computes the same function in PyTorch tensor ops: the
 zero-padding of the TPU kernel's wrapper, then the model's own plain scan,
@@ -25,6 +29,7 @@ final state is the unpadded one. They replace
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +37,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.models.ssd import ssd_chunked_reference
 
-MAX_CHUNK = 2048   # the kernel keeps a chunk's prefix sums and dt in shared memory
-MAX_STATE = 256    # ... and 64 rows of B and C at N + 1 floats each
+MAX_CHUNK = 2048   # the kernels keep a chunk's prefix sums and dt in shared memory
+MAX_STATE = 256    # ... and 64 rows of C at N + 4 floats
+CB_MIN_STATE = 64  # from this N on, C·Bᵀ is formed once per (chunk, group) by its own launch
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,13 +92,58 @@ def ssd_scan_plain(
     return y[:, :S], h
 
 
+class LaunchPlan(NamedTuple):
+    """What ``ssd_scan_cuda`` hands the kernels for one call."""
+
+    dims: tuple[int, ...]            # B, S, H, P, G, N, Q
+    n_chunks: int                    # ceil(S / Q): the last chunk is zero-padded
+    strides: tuple[int, ...]         # x, dt, B/C (batch, sequence), in elements
+    y_shape: tuple[int, ...]         # (B, S, H, P) in x's dtype
+    state_shape: tuple[int, ...]     # (B, H, P, N) f32
+    cum_shape: tuple[int, ...]       # scratch: (B, H, n, Q) f32 in-chunk prefix sums
+    chunk_states_shape: tuple[int, ...]  # scratch: (B, H, n, P, N) f32, S_c then h_{c-1}
+    cb_shape: tuple[int, ...] | None     # scratch: (B, n, G, Q, Q) f32 C·Bᵀ, for N >= CB_MIN_STATE
+
+
+def launch_plan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, *, chunk: int,
+                initial_state: torch.Tensor | None) -> LaunchPlan:
+    """Check the layout the kernels read and work out shapes, scratch and strides.
+
+    x, B and C may be strided views (as ``mamba_block`` makes them from one
+    projection) as long as their last two dims are packed: x's P and B/C's
+    N contiguous, heads and groups adjacent. B and C share strides. dt's
+    heads are contiguous; A and h0 are contiguous. Raises ``ValueError``
+    otherwise. Runs on tensors of any device (the CPU tests call it).
+    """
+    check_inputs(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if x.stride()[2:] != (P, 1) or dt.stride(2) != 1 or Bm.stride()[2:] != (N, 1):
+        raise ValueError(f"x needs packed (H, P), dt contiguous heads and B/C packed "
+                         f"(G, N): strides {x.stride()}, {dt.stride()}, {Bm.stride()}")
+    if Cm.stride() != Bm.stride():
+        raise ValueError(f"B and C must share strides: {Bm.stride()}, {Cm.stride()}")
+    if not A.is_contiguous() or (initial_state is not None
+                                 and not initial_state.is_contiguous()):
+        raise ValueError("A and initial_state must be contiguous")
+    Q = min(chunk, S)
+    n = -(-S // Q)
+    return LaunchPlan(dims=(B, S, H, P, G, N, Q), n_chunks=n,
+                      strides=(x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+                               Bm.stride(0), Bm.stride(1)),
+                      y_shape=(B, S, H, P), state_shape=(B, H, P, N),
+                      cum_shape=(B, H, n, Q), chunk_states_shape=(B, H, n, P, N),
+                      cb_shape=(B, n, G, Q, Q) if N >= CB_MIN_STATE else None)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("ssd_scan")
     fn = lib.ssd_scan_fwd
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,       # x, dt, A, B, C, h0
-                       ptr, ptr,                           # y, h_out
+                       ptr, ptr, ptr, ptr, ptr,            # y, h_out, cum, chunk states, C·Bᵀ
                        i32, i32, i32, i32, i32, i32, i32, i32,  # dtype, B, S, H, P, G, N, Q
                        i64, i64, i64, i64, i64, i64,       # x, dt, B/C strides (batch, seq)
                        ptr]                                # stream
@@ -105,40 +156,30 @@ def ssd_scan_cuda(
     Cm: torch.Tensor, *, chunk: int = 256,
     initial_state: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on x's device and current stream.
+    """Launch the three CUDA kernels on x's device and current stream.
 
-    x, B and C may be strided views (as ``mamba_block`` makes them from one
-    projection) as long as their last two dims are packed: x's P and B/C's
-    N contiguous, heads and groups adjacent. B and C share strides. dt's
-    heads are contiguous; A and h0 are contiguous. Raises for a tensor that
-    is not on a CUDA device, for anything ``check_inputs`` rejects, for
-    other layouts, and when the launch is refused.
+    Takes the layouts ``launch_plan`` accepts. Raises for a tensor that is
+    not on a CUDA device, for anything ``launch_plan`` rejects, and when a
+    launch is refused.
     """
-    check_inputs(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
+    plan = launch_plan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {x.device}")
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    if x.stride()[2:] != (P, 1) or dt.stride(2) != 1 or Bm.stride()[2:] != (N, 1):
-        raise ValueError(f"x needs packed (H, P), dt contiguous heads and B/C packed "
-                         f"(G, N): strides {x.stride()}, {dt.stride()}, {Bm.stride()}")
-    if Cm.stride() != Bm.stride():
-        raise ValueError(f"B and C must share strides: {Bm.stride()}, {Cm.stride()}")
-    if not A.is_contiguous() or (initial_state is not None
-                                 and not initial_state.is_contiguous()):
-        raise ValueError("A and initial_state must be contiguous")
     lib = _library()
-    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
-    h_out = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty(plan.y_shape, dtype=x.dtype, device=x.device)
+    h_out = torch.empty(plan.state_shape, **f32)
+    cum = torch.empty(plan.cum_shape, **f32)
+    chunk_states = torch.empty(plan.chunk_states_shape, **f32)
+    cb = torch.empty(plan.cb_shape, **f32) if plan.cb_shape is not None else None
     h0 = initial_state.data_ptr() if initial_state is not None else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), h0,
-            y.data_ptr(), h_out.data_ptr(),
-            _DTYPE_CODE[x.dtype], B, S, H, P, G, N, min(chunk, S),
-            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
-            Bm.stride(0), Bm.stride(1), stream)
+            y.data_ptr(), h_out.data_ptr(), cum.data_ptr(), chunk_states.data_ptr(),
+            cb.data_ptr() if cb is not None else None,
+            _DTYPE_CODE[x.dtype], *plan.dims, *plan.strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {rc}")
     ssd_scan_cuda.launches += 1

@@ -41,6 +41,68 @@ def segsum(la: torch.Tensor) -> torch.Tensor:
     return diff.masked_fill(~mask, float("-inf"))
 
 
+def chunk_views(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+    *, chunk: int,
+) -> tuple[torch.Tensor, ...]:
+    """The inputs as fp32 chunks: x (B,n,Q,H,P), dt (B,n,Q,H), B and C
+    broadcast to heads (B,n,Q,H,N), the log decays dt*A (B,n,Q,H) and their
+    in-chunk prefix sums ``cum`` (B,n,Q,H)."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, S)
+    assert S % Q == 0, (S, Q)
+    n_chunks = S // Q
+    xc = x.float().reshape(B_, n_chunks, Q, H, P)
+    dtc = dt.float().reshape(B_, n_chunks, Q, H)
+    Bc = Bm.float().reshape(B_, n_chunks, Q, G, N)
+    Cc = Cm.float().reshape(B_, n_chunks, Q, G, N)
+    lac = dtc * A.float()[None, None, None, :]                   # (B,n,Q,H) log decays
+    head_group = torch.arange(H, device=x.device) // (H // G)    # map head -> group
+    Bh = Bc[:, :, :, head_group, :]                              # (B,n,Q,H,N)
+    Ch = Cc[:, :, :, head_group, :]
+    cum = torch.cumsum(lac, dim=2)                               # (B,n,Q,H)
+    return xc, dtc, Bh, Ch, lac, cum
+
+
+def chunk_states(xc: torch.Tensor, dtc: torch.Tensor, Bh: torch.Tensor,
+                 cum: torch.Tensor) -> torch.Tensor:
+    """Step 1, each chunk's own state (B,n,H,P,N):
+    S_c = sum_j exp(cum_end - cum_j) dt_j x_j ⊗ B_j."""
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)            # (B,n,Q,H)
+    return torch.einsum("bnjh,bnjh,bnjhs,bnjhp->bnhps", decay_to_end, dtc, Bh, xc)
+
+
+def state_passing(states: torch.Tensor, cum: torch.Tensor,
+                  initial_state: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Step 2, in chunk order: h_c = exp(cum_end,c) h_{c-1} + S_c from
+    h_{-1} = ``initial_state`` (zeros if None). Returns the state entering
+    each chunk, h_{c-1} (B,n,H,P,N), and the final state (B,H,P,N)."""
+    B_, n_chunks, H, P, N = states.shape
+    chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,n,H)
+    if initial_state is None:
+        h = torch.zeros((B_, H, P, N), dtype=torch.float32, device=states.device)
+    else:
+        h = initial_state.float()
+    h_prevs = []
+    for c in range(n_chunks):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    return torch.stack(h_prevs, dim=1), h
+
+
+def chunk_output(xc: torch.Tensor, dtc: torch.Tensor, Bh: torch.Tensor, Ch: torch.Tensor,
+                 lac: torch.Tensor, cum: torch.Tensor, h_prevs: torch.Tensor) -> torch.Tensor:
+    """Step 3, per chunk (B,n,Q,H,P) fp32:
+    y = (C B^T ⊙ L ⊙ dt) x + (C ⊙ exp(cum)) h_{c-1}^T, L[i,j] = exp(cum_i - cum_j), j <= i."""
+    L = torch.exp(segsum(lac.permute(0, 1, 3, 2)))               # (B,n,H,Q,Q)
+    scores = torch.einsum("bnihd,bnjhd->bnhij", Ch, Bh)          # (B,n,H,Q,Q)
+    y_intra = torch.einsum("bnhij,bnhij,bnjh,bnjhp->bnihp", scores, L, dtc, xc)
+    in_decay = torch.exp(cum)                                    # (B,n,Q,H)
+    y_inter = torch.einsum("bnihs,bnhps,bnih->bnihp", Ch, h_prevs, in_decay)
+    return y_intra + y_inter
+
+
 def ssd_chunked_reference(
     x: torch.Tensor,   # (B,S,H,P)
     dt: torch.Tensor,  # (B,S,H)
@@ -51,53 +113,16 @@ def ssd_chunked_reference(
     chunk: int,
     initial_state: torch.Tensor | None = None,  # (B,H,P,N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32). fp32 math."""
-    B_, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    rep = H // G
-    Q = min(chunk, S)
-    assert S % Q == 0, (S, Q)
-    n_chunks = S // Q
+    """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32). fp32 math.
 
-    # chunked views: (B, n, Q, ...)
-    xc = x.float().reshape(B_, n_chunks, Q, H, P)
-    dtc = dt.float().reshape(B_, n_chunks, Q, H)
-    Bc = Bm.float().reshape(B_, n_chunks, Q, G, N)
-    Cc = Cm.float().reshape(B_, n_chunks, Q, G, N)
-    lac = dtc * A.float()[None, None, None, :]                   # (B,n,Q,H) log decays
-    head_group = torch.arange(H, device=x.device) // rep         # map head -> group
-    Bh = Bc[:, :, :, head_group, :]                              # (B,n,Q,H,N)
-    Ch = Cc[:, :, :, head_group, :]
-
-    # --- intra-chunk (quadratic within chunk) ---
-    L = torch.exp(segsum(lac.permute(0, 1, 3, 2)))               # (B,n,H,Q,Q)
-    scores = torch.einsum("bnihd,bnjhd->bnhij", Ch, Bh)          # (B,n,H,Q,Q)
-    y_intra = torch.einsum("bnhij,bnhij,bnjh,bnjhp->bnihp", scores, L, dtc, xc)
-
-    # --- chunk summary states ---
-    cum = torch.cumsum(lac, dim=2)                               # (B,n,Q,H)
-    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)            # (B,n,Q,H)
-    states = torch.einsum("bnjh,bnjh,bnjhs,bnjhp->bnhps",
-                          decay_to_end, dtc, Bh, xc)             # (B,n,H,P,N)
-
-    # --- inter-chunk recurrence ---
-    chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,n,H)
-    if initial_state is None:
-        h = torch.zeros((B_, H, P, N), dtype=torch.float32, device=x.device)
-    else:
-        h = initial_state.float()
-    h_prevs = []
-    for c in range(n_chunks):
-        h_prevs.append(h)
-        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
-    h_prevs = torch.stack(h_prevs, dim=1)                        # (B,n,H,P,N)
-
-    # inter-chunk contribution: C_i · h_prev, decayed to position i
-    in_decay = torch.exp(cum)                                    # (B,n,Q,H)
-    y_inter = torch.einsum("bnihs,bnhps,bnih->bnihp", Ch, h_prevs, in_decay)
-
-    y = (y_intra + y_inter).reshape(B_, S, H, P)
-    return y.to(x.dtype), h
+    The three steps of the chunk-parallel form, as the kernel runs them:
+    ``chunk_states``, ``state_passing``, ``chunk_output``.
+    """
+    xc, dtc, Bh, Ch, lac, cum = chunk_views(x, dt, A, Bm, Cm, chunk=chunk)
+    states = chunk_states(xc, dtc, Bh, cum)
+    h_prevs, h = state_passing(states, cum, initial_state)
+    y = chunk_output(xc, dtc, Bh, Ch, lac, cum, h_prevs)
+    return y.reshape(x.shape).to(x.dtype), h
 
 
 def ssd_decode_step(

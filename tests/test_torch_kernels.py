@@ -17,9 +17,14 @@ from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.models.attention import mha_reference as jax_mha_reference  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    BLOCK_K,
+    BLOCK_Q,
     flash_attention_cuda,
     flash_attention_plain,
+    kernel_for,
+    tiles,
 )
+from repro_torch.models.attention import kv_block_range  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -106,6 +111,42 @@ def test_flash_attention_ragged(causal, window, q_offset):
     oracle = flash_attention_ref(tq, tk, tv, causal=causal, window=window,
                                  q_offset=q_offset)
     np.testing.assert_allclose(as_np(out), as_np(oracle), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 64), ("bfloat16", 128), ("float32", 64)])
+def test_first_live_tile_fully_masked_at_the_kernels_tiles(dtype, hd):
+    """A window that starts inside a KV tile with q_offset > 0: at the tiles
+    of the kernel that takes these inputs (128 x 128 for the wgmma kernel),
+    the block's last query rows see nothing of their first live tile, so
+    the finite NEG_INF wipe (p = 1 terms cancelled by the next visible key's
+    correction) is what keeps them right. Held against the JAX kernel."""
+    B, Sq, Sk, H, K, window, q_offset = 1, 128, 384, 4, 2, 100, 256
+    block_q, block_k = tiles(TORCH[dtype], hd)
+    masked_first_tile = False
+    for q_start in range(0, Sq, block_q):
+        lo, _ = kv_block_range(q_start, min(block_q, Sq - q_start), Sk, block_k,
+                               causal=True, window=window, q_offset=q_offset)
+        last = q_offset + min(q_start + block_q, Sq) - 1
+        masked_first_tile |= (lo + 1) * block_k - 1 <= last - window
+    assert masked_first_tile
+    (jq, jk, jv), (tq, tk, tv) = make_qkv(6, B, Sq, Sk, H, K, hd, dtype)
+    ref = flash_attention_pallas(jq, jk, jv, causal=True, window=window, q_offset=q_offset,
+                                 block_q=128, block_k=128, interpret=True)
+    out = ops.flash_attention(tq, tk, tv, causal=True, window=window, q_offset=q_offset)
+    tol = ATOL[dtype]
+    np.testing.assert_allclose(as_np(out), as_np(ref), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"), ("bfloat16", 32, "mma_sync"),
+    ("bfloat16", 256, "mma_sync"), ("bfloat16", 24, "mma_sync"), ("float32", 128, "fp32"),
+])
+def test_the_head_dim_rule_picks_one_kernel_and_its_tiles(dtype, hd, kernel):
+    """The wrapper's rule: the wgmma kernel for bf16 at hd 64 or 128, the
+    mma.sync kernel for other bf16 head dims, the fp32 kernel for fp32; the
+    plain version walks the chosen kernel's tiles."""
+    assert kernel_for(TORCH[dtype], hd) == kernel
+    assert tiles(TORCH[dtype], hd) == ((BLOCK_Q, BLOCK_K) if kernel == "wgmma" else (64, 32))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -19,7 +19,9 @@ from repro.models import ssd as jax_ssd  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    CB_MIN_STATE,
     check_inputs,
+    launch_plan,
     ssd_scan_cuda,
     ssd_scan_plain,
 )
@@ -207,3 +209,118 @@ def test_check_inputs_rejects_what_the_kernel_does_not_take(case):
         kw["initial_state"] = h0[:, :, :4]
     with pytest.raises(ValueError):
         check_inputs(x, dt, A, Bm, Cm, **kw)
+
+
+# ---- the kernel's three steps, each held against its formula in numpy ----
+
+SWEEP = [(2, 128, 4, 16, 2, 32, 32), (1, 256, 8, 32, 2, 64, 64),
+         (1, 64, 4, 16, 1, 32, 64), (2, 96, 4, 16, 4, 32, 32)]
+
+
+def numpy_stages(x, dt, A, Bm, Cm, h0, Q):
+    """cum, S_c, h_{c-1}, the final state and y of the chunk-parallel form,
+    straight from the formulas in float64, one (batch, chunk, head) at a time."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    n = S // Q
+    x, dt, Bm, Cm = (a.astype(np.float64) for a in (x, dt, Bm, Cm))
+    cum = np.zeros((B, n, Q, H))
+    states = np.zeros((B, n, H, P, N))
+    h_prev = np.zeros((B, n, H, P, N))
+    final = np.zeros((B, H, P, N))
+    y = np.zeros((B, S, H, P))
+    for b in range(B):
+        for h in range(H):
+            g = h // (H // G)
+            state = np.zeros((P, N)) if h0 is None else h0[b, h].astype(np.float64)
+            for c in range(n):
+                rows = slice(c * Q, (c + 1) * Q)
+                xs, ds, bs, cs = x[b, rows, h], dt[b, rows, h], Bm[b, rows, g], Cm[b, rows, g]
+                cu = np.cumsum(ds * A[h])
+                cum[b, c, :, h] = cu
+                s_c = sum(np.exp(cu[-1] - cu[j]) * ds[j] * np.outer(xs[j], bs[j])
+                          for j in range(Q))
+                states[b, c, h] = s_c
+                h_prev[b, c, h] = state
+                for i in range(Q):
+                    w = [(cs[i] @ bs[j]) * np.exp(cu[i] - cu[j]) * ds[j] for j in range(i + 1)]
+                    y[b, c * Q + i, h] = (np.asarray(w) @ xs[:i + 1]
+                                          + np.exp(cu[i]) * (state @ cs[i]))
+                state = np.exp(cu[-1]) * state + s_c
+            final[b, h] = state
+    return cum, states, h_prev, final, y
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", SWEEP)
+def test_ssd_stages_match_their_formulas(B, S, H, P, G, N, Q):
+    """chunk_views' cum, chunk_states, state_passing and chunk_output, each
+    against the direct evaluation, so a step that is wrong on the card can
+    be found on the CPU."""
+    x, dt, A, Bm, Cm, h0 = make_inputs(9, B, S, H, P, G, N)
+    cum_n, states_n, hprev_n, final_n, y_n = numpy_stages(x, dt, A, Bm, Cm, h0, min(Q, S))
+    tx, tdt, tA, tB, tC, th0 = (torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, h0))
+    xc, dtc, Bh, Ch, lac, cum = ssd.chunk_views(tx, tdt, tA, tB, tC, chunk=Q)
+    np.testing.assert_allclose(cum.numpy(), cum_n, atol=1e-5, rtol=1e-5)
+    states = ssd.chunk_states(xc, dtc, Bh, cum)
+    np.testing.assert_allclose(states.numpy(), states_n, atol=1e-4, rtol=1e-4)
+    h_prevs, final = ssd.state_passing(states, cum, th0)
+    np.testing.assert_allclose(h_prevs.numpy(), hprev_n, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(final.numpy(), final_n, atol=1e-4, rtol=1e-4)
+    y = ssd.chunk_output(xc, dtc, Bh, Ch, lac, cum, h_prevs)
+    np.testing.assert_allclose(y.reshape(B, S, H, P).numpy(), y_n, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("S,chunk,n_chunks,Q", [(128, 32, 4, 32), (40, 16, 3, 16),
+                                                (24, 256, 1, 24), (2048, 256, 8, 256)])
+def test_launch_plan_shapes_and_padding(S, chunk, n_chunks, Q):
+    """The scratch the wrapper allocates: cum (B,H,n,Q), chunk states
+    (B,H,n,P,N), with n = ceil(S / Q) and Q = min(chunk, S)."""
+    B, H, P, G, N = 2, 4, 8, 2, 16
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in make_inputs(10, B, S, H, P, G, N))
+    plan = launch_plan(x, dt, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    assert plan.dims == (B, S, H, P, G, N, Q) and plan.n_chunks == n_chunks
+    assert plan.cum_shape == (B, H, n_chunks, Q)
+    assert plan.chunk_states_shape == (B, H, n_chunks, P, N)
+    assert plan.y_shape == (B, S, H, P) and plan.state_shape == (B, H, P, N)
+    assert plan.strides == (S * H * P, H * P, S * H, H, S * G * N, G * N)
+    assert plan.cb_shape is None  # N = 16: the output kernel forms C·Bᵀ itself
+
+
+@pytest.mark.parametrize("N", [32, 64, 128])
+def test_launch_plan_shares_cb_per_group_from_n_64(N):
+    """From N = 64 on, C·Bᵀ is formed once per (chunk, group) into a
+    (B, n, G, Q, Q) scratch that the group's heads share."""
+    B, S, H, P, G, Q = 2, 96, 4, 8, 2, 32
+    x, dt, A, Bm, Cm, _ = (torch.from_numpy(a) for a in make_inputs(13, B, S, H, P, G, N))
+    plan = launch_plan(x, dt, A, Bm, Cm, chunk=Q, initial_state=None)
+    assert plan.cb_shape == ((B, 3, G, Q, Q) if N >= CB_MIN_STATE else None)
+
+
+def test_launch_plan_passes_the_strides_of_the_models_views():
+    """mamba_block hands x, B and C as views into one projection: the plan
+    passes their batch and sequence strides, not packed ones."""
+    B, S, H, P, G, N = 2, 48, 4, 8, 1, 16
+    x, dt, A, Bm, Cm, _ = (torch.from_numpy(a) for a in make_inputs(11, B, S, H, P, G, N))
+    width = H * P + 2 * G * N
+    xbc = torch.cat([x.reshape(B, S, H * P), Bm.reshape(B, S, G * N),
+                     Cm.reshape(B, S, G * N)], dim=-1)
+    xs, bs, cs = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    plan = launch_plan(xs.reshape(B, S, H, P), dt, A, bs.reshape(B, S, G, N),
+                       cs.reshape(B, S, G, N), chunk=16, initial_state=None)
+    assert plan.strides == (S * width, width, S * H, H, S * width, width)
+
+
+@pytest.mark.parametrize("case", ["x_heads", "bc_strides", "dt_heads", "h0_layout"])
+def test_launch_plan_rejects_layouts_the_kernels_do_not_read(case):
+    B, S, H, P, G, N = 1, 32, 4, 8, 1, 16
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in make_inputs(12, B, S, H, P, G, N))
+    if case == "x_heads":       # P not contiguous
+        x = x.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "bc_strides":  # B and C with different strides
+        Cm = torch.cat([Cm, Cm], dim=1)[:, ::2]
+    elif case == "dt_heads":
+        dt = dt.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        h0 = h0.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError):
+        launch_plan(x, dt, A, Bm, Cm, chunk=16, initial_state=h0)
