@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3 for flash and SSD, then stop
+    python3 chip_smoke.py --train-only     # phases 1 and 8, then stop
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
@@ -69,18 +70,38 @@ never JAX or the JAX package, and runs, in order:
      step follow; then the same script with the plain versions in place of
      the kernels (byte-identical each step), at 1,048,576 elements against
      the sim plane on the host (byte-identical results, stages and
-     ``sim_seconds``), and with 1-element payloads (the host's share).
+     ``sim_seconds``), and with 1-element payloads (the host's share);
+  8. the resilient trainer, this slice's main path (the earlier phases'
+     tensors freed first):
+     - llama3.2-3b cut to 2 layers at full width, weights drawn on the CPU:
+       ``train_loss`` and its gradients on the card against the CPU in
+       fp32 with TF32 off (loss within 1e-4, each gradient leaf within
+       1e-3 in norm), then bf16 against fp32 on the card (loss within 2e-2
+       relative, global gradient norm within 5%);
+     - ``make_batch(0, 0, 0, 1 x 1024, vocab 128256)``'s tokens against
+       the SHA-256 that tests/test_torch_data.py pins from jax;
+     - full-width llama3.2-3b through ``ResilientTrainer`` on 8 nodes in
+       legions of 4, one 1024-token sequence a shard, 6 steps with faults
+       (2, 1) and (4, 5): every step runs once, repairs at steps 2 and 4,
+       8 -> 7 -> 6 shards, finite losses, and no kernel launched (the
+       kernels are forward-only; training runs the plain paths, as the JAX
+       package's does); per-step loss, wall ms and tokens/s, the peak
+       memory, and one fault-free step under the profiler;
+     - full-width mamba2-130m for 3 fault-free steps the same way.
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
-kernels' JSON record (each kernel's time, bound and share of the bound)
-and ``{"ok": true, "device": {...}}``; ``--kernels-only`` prints neither of
-the last two.
+kernels' JSON record (each kernel's time, bound and share of the bound,
+its launches on every path, the train runs' included) and ``{"ok": true,
+"device": {...}}``; ``--kernels-only`` and ``--train-only`` print neither
+of the last two.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -108,6 +129,9 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}    # SSD scan (the reference's)
 # run to run.
 MODEL_RMS_RATIO = 2.0
 FIRST_LAUNCH_TIMEOUT_S = 60   # a new kernel's first launch: longer means a hang
+# SHA-256 of make_batch(0, 0, 0, batch=1, seq_len=1024, vocab_size=128256)'s
+# int32 tokens as jax produces them; tests/test_torch_data.py pins it from jax
+MAKE_BATCH_SHA256 = "8351c80a8896cea2b658f5e7faa50a757eec07c935177296238d9a3a05277bea"
 
 
 def card_line() -> str:
@@ -526,10 +550,281 @@ def runtime_phase(torch, P, PM, ops, Q, dev, counters) -> dict:
     return rt_launches
 
 
+# ---- training (phase 8) --------------------------------------------------
+TRAIN_NODES, TRAIN_LEGION, TRAIN_STEPS, TRAIN_SEQ = 8, 4, 6, 1024
+TRAIN_FAULTS = [(2, 1), (4, 5)]            # (step, node): 8 -> 7 -> 6 shards
+TRAIN_REPAIR_STEPS = [2, 4]
+TRAIN_SHARDS = [8, 8, 7, 7, 6, 6]
+MAMBA_TRAIN_STEPS = 3
+CHECK_B, CHECK_S = 2, 128                  # phases 8.1-8.2: the 2-layer cut's batch
+CARD_CPU_LOSS_RTOL, CARD_CPU_GRAD_RTOL = 1e-4, 1e-3
+BF16_LOSS_RTOL, BF16_GNORM_RTOL = 2e-2, 5e-2
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def loss_and_grads(torch, api, cfg, params, batch):
+    """(loss, gradient leaves in sorted-key order) of ``api.train_loss``."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, _ = api.train_loss(cfg, params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def global_norm_of(torch, grads):
+    return torch.sqrt(sum(g.float().square().sum() for g in grads)).item()
+
+
+def train_checks(torch, api, cfg, dev) -> dict:
+    """Phases 8.1-8.2 on ``cfg`` cut to 2 layers at full width: train_loss and
+    its gradients on the card against the CPU in fp32 (TF32 off), then bf16
+    against fp32 on the card, all from one set of weights drawn on the CPU."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.optim.adamw import tree_map
+
+    cut = cfg.replace(n_layers=2, dtype="float32", param_dtype="float32")
+    params = api.init_params(cut, torch.Generator().manual_seed(0), "cpu")
+    batch = make_batch(0, 0, 0, batch=CHECK_B, seq_len=CHECK_S, vocab_size=cut.vocab_size,
+                       device="cpu")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(torch, api, cut, params, batch)
+    cpu_s = time.perf_counter() - t0
+    on_card = tree_map(lambda t: t.to(dev), params)
+    del params
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    loss32, grads32 = loss_and_grads(torch, api, cut, on_card, card_batch)
+    loss_rel = abs(loss32.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    grad_rel = max((g.cpu() - c).norm().item() / c.norm().item()
+                   for g, c in zip(grads32, cpu_grads))
+    ok = loss_rel <= CARD_CPU_LOSS_RTOL and grad_rel <= CARD_CPU_GRAD_RTOL
+    print(f"[8] {cut.name} 2 layers d={cut.d_model} vocab {cut.vocab_size} fp32, B={CHECK_B} "
+          f"S={CHECK_S}: loss card {loss32.item():.6f} cpu {cpu_loss.item():.6f} (rel "
+          f"{loss_rel:.3e}, limit {CARD_CPU_LOSS_RTOL:g}); worst gradient leaf rel norm err "
+          f"{grad_rel:.3e} (limit {CARD_CPU_GRAD_RTOL:g}); the CPU pass took {cpu_s:.1f} s "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train_loss or its gradients differ between the card and the CPU")
+    del cpu_grads
+
+    bf = cut.replace(dtype="bfloat16", param_dtype="bfloat16")
+    loss16, grads16 = loss_and_grads(torch, api, bf, tree_map(lambda t: t.bfloat16(), on_card),
+                                     card_batch)
+    gn32, gn16 = global_norm_of(torch, grads32), global_norm_of(torch, grads16)
+    dloss = abs(loss16.item() - loss32.item())
+    ok = dloss <= BF16_LOSS_RTOL * abs(loss32.item()) and abs(gn16 - gn32) <= BF16_GNORM_RTOL * gn32
+    print(f"[8] bf16 vs fp32 on the card: loss {loss16.item():.6f} vs {loss32.item():.6f} "
+          f"(|d| {dloss:.3e}, limit {BF16_LOSS_RTOL:g} x |loss|); global grad norm "
+          f"{gn16:.6f} vs {gn32:.6f} (rel {abs(gn16 - gn32) / gn32:.3e}, limit "
+          f"{BF16_GNORM_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 training loss or gradient norm is off the fp32 one")
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, bf16_dloss=dloss,
+                bf16_gnorm_rel=abs(gn16 - gn32) / gn32)
+
+
+def train_profile(torch, trainer, vocab: int) -> dict:
+    """One fault-free step of ``trainer`` under torch.profiler: wall and busy
+    ms (device kernels only); the operators that launched the most kernel
+    time; GEMM kernel time split by the op's shapes (the cross-entropy's
+    fp32 logit GEMMs have the vocabulary as a dimension; attention's
+    einsums are the only batched ones in the dense model; the rest are the
+    model's bf16 GEMMs); and the device span of attention's forward and
+    recompute and of the optimizer (clip and AdamW), from ranges put around
+    them for this step only."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch.core.trainer as trainer_mod
+    import repro_torch.models.transformer as transformer_mod
+
+    saved = {}
+
+    def label(mod, name, tag):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            with record_function(tag):
+                return fn(*args, **kwargs)
+
+        saved[(mod, name)] = fn
+        setattr(mod, name, wrapper)
+
+    label(trainer_mod, "clip_by_global_norm_", "train.optimizer")
+    label(trainer_mod, "adamw_update_", "train.optimizer")
+    label(transformer_mod, "attention", "train.attention")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            report = trainer.run_step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    averages = prof.key_averages()
+    spans = {e.key: e.self_device_time_total / 1e3 for e in averages
+             if e.key.startswith("train.")}
+    kernels = [e for e in averages if e.self_device_time_total > 0 and e.cpu_time_total == 0
+               and not e.key.startswith("train.")]
+    ops = sorted((e for e in averages if e.self_device_time_total > 0 and e.cpu_time_total > 0
+                  and not e.key.startswith("train.")),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    out = dict(step=report.step, wall_ms=wall_ms, busy_ms=busy_ms, xent_gemm_ms=0.0,
+               xent_gemms=0, attn_gemm_ms=0.0, model_gemm_ms=0.0,
+               attention_span_ms=spans.get("train.attention", 0.0),
+               optimizer_span_ms=spans.get("train.optimizer", 0.0),
+               top_ops="; ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                                 for e in ops[:10]))
+    for e in prof.events():
+        if e.name in GEMM_OPS:
+            ms = e.self_device_time_total / 1e3
+            shapes = [s for s in (e.input_shapes or []) if isinstance(s, (list, tuple))]
+            if any(vocab in s for s in shapes):
+                out["xent_gemm_ms"] += ms
+                out["xent_gemms"] += 1
+            elif e.name in ("aten::bmm", "aten::baddbmm"):
+                out["attn_gemm_ms"] += ms
+            else:
+                out["model_gemm_ms"] += ms
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    out["top"] = "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                           for e in kernels[:6])
+    return out
+
+
+def train_run(torch, P, cfg, dev, *, steps, faults, counters, label):
+    """``ResilientTrainer`` on ``VirtualCluster(TRAIN_NODES)`` (legions of
+    TRAIN_LEGION, per-shard batch 1, sequence TRAIN_SEQ) for ``steps`` steps
+    with every kernel's count zeroed just before and read just after. Returns
+    (trainer, per-step records, launches, peak bytes)."""
+    from repro_torch.configs.base import TrainConfig
+
+    tc = TrainConfig(total_steps=steps, warmup_steps=max(steps // 10, 1))
+    cluster = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION),
+                               injector=P.FaultInjector.at(faults), device=dev)
+    trainer = P.ResilientTrainer(cfg, tc, cluster, per_shard_batch=1, seq_len=TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    records = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        r = trainer.run_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = r.active_shards * TRAIN_SEQ
+        records.append(dict(step=r.step, loss=r.loss, grad_norm=r.grad_norm,
+                            shards=r.active_shards, wall_ms=wall * 1e3,
+                            tokens_per_s=tokens / wall, repair=r.repair))
+        print(f"[8] {label} step {r.step}: loss {r.loss:.6f} grad_norm {r.grad_norm:.4f} "
+              f"shards {r.active_shards} wall_ms {wall * 1e3:.3f} (card synchronised) "
+              f"tokens_per_s {tokens / wall:.1f}"
+              f"{' REPAIR ' + r.repair.summary() if r.repair else ''}")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return trainer, records, launches, torch.cuda.max_memory_allocated()
+
+
+def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
+    """Phase 8: the resilient trainer. Card vs CPU and bf16 vs fp32 checks on
+    the 2-layer cut, the data digest, then full-width llama3.2-3b through
+    TRAIN_FAULTS (the main path: every step once, repairs at 2 and 4, 8 -> 7
+    -> 6 shards, finite losses, no kernel launched) with a profiled
+    fault-free step, then full-width mamba2-130m for MAMBA_TRAIN_STEPS."""
+    import hashlib
+
+    from repro_torch.data.pipeline import make_batch
+
+    llama, mamba = cfgs
+    checks = train_checks(torch, api, llama, dev)
+    torch.cuda.empty_cache()
+
+    tokens = make_batch(0, 0, 0, batch=1, seq_len=1024, vocab_size=128256)["tokens"]
+    digest = hashlib.sha256(tokens.cpu().numpy().tobytes()).hexdigest()
+    verdict = "ok" if digest == MAKE_BATCH_SHA256 else f"FAIL (jax: {MAKE_BATCH_SHA256})"
+    print(f"[8] make_batch(0, 0, 0, 1 x 1024, vocab 128256) on {tokens.device}: sha256 "
+          f"{digest} {verdict}")
+    if digest != MAKE_BATCH_SHA256 or tokens.dtype != torch.int32:
+        raise AssertionError("make_batch's tokens differ from the JAX package's")
+
+    trainer, records, launches, peak = train_run(
+        torch, P, llama, dev, steps=TRAIN_STEPS, faults=TRAIN_FAULTS, counters=counters,
+        label=llama.name)
+    n_params = api.count_params(trainer.params)
+    repairs = [r["step"] for r in records if r["repair"] is not None]
+    print(f"[8] {llama.name} full width ({n_params} params, {llama.n_layers} layers, "
+          f"d={llama.d_model}, remat={llama.remat}): steps {[r['step'] for r in records]}, "
+          f"repairs at {repairs}, shards {[r['shards'] for r in records]}, live nodes "
+          f"{trainer.cluster.live_nodes}; kernel launches {json.dumps(launches)}; peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak} B)")
+    if [r["step"] for r in records] != list(range(TRAIN_STEPS)) or repairs != TRAIN_REPAIR_STEPS \
+            or [r["shards"] for r in records] != TRAIN_SHARDS \
+            or len(trainer.cluster.live_nodes) != TRAIN_SHARDS[-1] \
+            or not all(math.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"{llama.name}: the run did not go on through its faults")
+    if any(launches.values()):
+        raise AssertionError(f"training launched a forward-only kernel: {launches}")
+
+    prof = train_profile(torch, trainer, llama.vocab_size)
+    flops = 8 * n_params * TRAIN_SHARDS[-1] * TRAIN_SEQ
+    print(f"[8] {llama.name} step {prof['step']} (6 shards, {TRAIN_SHARDS[-1] * TRAIN_SEQ} tokens) "
+          f"under the profiler: wall {prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} "
+          f"ms ({prof['busy_ms'] / prof['wall_ms']:.3f} of wall); GEMMs: cross-entropy fp32 "
+          f"logits {prof['xent_gemm_ms']:.3f} ms ({prof['xent_gemms']} GEMMs), attention "
+          f"einsums (fp32) {prof['attn_gemm_ms']:.3f} ms, model bf16 {prof['model_gemm_ms']:.3f} "
+          f"ms; device span of attention's forward + recompute {prof['attention_span_ms']:.3f} "
+          f"ms, of the optimizer (clip + AdamW) {prof['optimizer_span_ms']:.3f} ms; "
+          f"8 x params x tokens = {flops:.3e} FLOP")
+    print(f"[8] {llama.name} profiled step, operators by kernel time: {prof['top_ops']}")
+    print(f"[8] {llama.name} profiled step, kernels: {prof['top']}")
+    steady = [r["wall_ms"] for r in records if r["repair"] is None and r["step"] > 0]
+    summary = dict(step_ms=[r["wall_ms"] for r in records],
+                   tokens_per_s=[r["tokens_per_s"] for r in records],
+                   loss=[r["loss"] for r in records], peak_bytes=peak,
+                   median_fault_free_ms=statistics.median(steady), profile=prof,
+                   launches=launches, **checks)
+    del trainer
+    gc.collect()            # the trainer's state getters close a reference cycle
+    torch.cuda.empty_cache()
+
+    m_trainer, m_records, m_launches, m_peak = train_run(
+        torch, P, mamba, dev, steps=MAMBA_TRAIN_STEPS, faults=[], counters=counters,
+        label=mamba.name)
+    print(f"[8] {mamba.name} full width ({api.count_params(m_trainer.params)} params, "
+          f"{mamba.n_layers} layers, d={mamba.d_model}): shards "
+          f"{[r['shards'] for r in m_records]}, kernel launches {json.dumps(m_launches)}, "
+          f"peak memory {m_peak / 2**30:.2f} GiB ({m_peak} B)")
+    if [r["step"] for r in m_records] != list(range(MAMBA_TRAIN_STEPS)) \
+            or any(r["repair"] is not None or r["shards"] != TRAIN_NODES for r in m_records) \
+            or not all(math.isfinite(r["loss"]) for r in m_records):
+        raise AssertionError(f"{mamba.name}: the fault-free run went wrong")
+    if any(m_launches.values()):
+        raise AssertionError(f"training launched a forward-only kernel: {m_launches}")
+    summary["mamba"] = dict(step_ms=[r["wall_ms"] for r in m_records],
+                            tokens_per_s=[r["tokens_per_s"] for r in m_records],
+                            loss=[r["loss"] for r in m_records], peak_bytes=m_peak,
+                            launches=m_launches)
+    del m_trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main(argv: list[str]) -> int:
     import torch
 
     kernels_only = "--kernels-only" in argv  # phases 1-3 for flash and SSD, then stop
+    train_only = "--train-only" in argv      # phases 1 and 8, then stop
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -562,6 +857,13 @@ def main(argv: list[str]) -> int:
     print(f"[1] nvidia-smi: {card}")
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
           f"count {torch.cuda.device_count()}")
+    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
+                "absmax": quantize.absmax_cuda, "quantize_int8": quantize.quantize_int8_cuda}
+    train_cfgs = (get_config("llama3.2-3b"), get_config("mamba2-130m"))
+    if train_only:
+        train = train_phase(torch, rt_core, api, train_cfgs, dev, counters)
+        print(json.dumps({"train_only": train}, default=str))
+        return 0
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -826,8 +1128,6 @@ def main(argv: list[str]) -> int:
 
     # ---- 5. serve at full width ------------------------------------------
     nodes, per_node, n_req, n_dec = 2, 4, 8, 16
-    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
-                "absmax": quantize.absmax_cuda, "quantize_int8": quantize.quantize_int8_cuda}
     launches_by_path = {}
 
     def serve(arch, prompt_len):
@@ -899,11 +1199,21 @@ def main(argv: list[str]) -> int:
     # ---- 7. the Legio runtime at full size: the slice's main path --------
     rt_launches = runtime_phase(torch, rt_core, rt_mpi, ops, quantize, dev, counters)
 
+    # ---- 8. the resilient trainer: this slice's main path ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = train_phase(torch, rt_core, api, train_cfgs, dev, counters)
+    train_launches = {f"train:{train_cfgs[0].name}": train["launches"],
+                      f"train:{train_cfgs[1].name}": train["mamba"]["launches"]}
+    print(json.dumps({"train": train}, default=str))
+
     def entry(name, replaces, shapes):
         """One kernel's record at the slice's main path (hymba-1.5b): its shape,
         its launches; every measured shape under ``shapes`` and every serve
-        run's launches under ``launches_by_path``."""
+        run's launches under ``launches_by_path``, the train runs' (0) too."""
         by_path = {arch: launches[name] for arch, launches in launches_by_path.items()}
+        by_path.update({path: launches[name] for path, launches in train_launches.items()})
         main = shapes[-1] if name == "flash_attention" else shapes[0]
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
@@ -913,11 +1223,14 @@ def main(argv: list[str]) -> int:
                 "shape": main["shape"], "shapes": shapes}
 
     def quant_entry(name, replaces):
-        """One compression-hop kernel's record: the runtime phase's launches,
-        the path shape's numbers."""
+        """One compression-hop kernel's record: the runtime phase's launches
+        (and the train runs', 0), the path shape's numbers."""
+        by_path = {"runtime": rt_launches[name],
+                   **{path: launches[name] for path, launches in train_launches.items()}}
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/quantize.cu", "replaces": replaces,
-                "launches": rt_launches[name], **quant_records[name],
+                "launches": rt_launches[name], "launches_by_path": by_path,
+                **quant_records[name],
                 "shape": f"f32 ({GRAD_ELEMS},)"}
 
     record = {"kernels": [

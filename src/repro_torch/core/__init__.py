@@ -11,13 +11,15 @@ Layering (paper section -> module):
   §V  collectives    hierarchical op schedules over the data-plane seam
   §IV batch          DROP / REBALANCE shard reassignment
   §IV executor       transparent orchestration draining the pipeline
+  §VII cr            per-legion checkpoint/restart (restart-only-failed)
+  —   trainer        resilient data-parallel training
 
 The control plane is numpy and host Python, carried over from the JAX
 package; payloads ride the data plane (``repro_torch.dist.dataplane``),
 device tensors on the torch plane. Applications program against
 :mod:`repro_torch.mpi` (Session/Comm); everything here is the machinery
-behind it. The chaos harness, the fault-model zoo, the mesh manager,
-checkpoint/restart and the trainer come with later slices.
+behind it. The chaos harness, the fault-model zoo and the mesh manager come
+with later slices.
 """
 from repro_torch.core.agreement import agree_fault, agreement_rounds
 from repro_torch.core.batch import (
@@ -36,6 +38,7 @@ from repro_torch.core.collectives import (
     agreement_time,
     flat_collective_time,
 )
+from repro_torch.core.cr import LegionCheckpointer, RestartRecord
 from repro_torch.core.detector import (
     FaultInjector,
     HeartbeatDetector,
@@ -91,6 +94,7 @@ from repro_torch.core.substitute import (
     restore_for_substitute,
     restore_member_state,
 )
+from repro_torch.core.trainer import ResilientTrainer, TrainerReport, make_train_step
 from repro_torch.core.types import (
     ChaosAction,
     FailureEvent,
@@ -110,19 +114,21 @@ __all__ = [
     "AdaptiveDecision", "BatchPlan", "ChaosAction", "CollectiveResult",
     "CostModelStrategy", "FailureEvent", "FailureKind", "FaultEvent",
     "FaultInjector", "FaultPipeline", "FaultSource", "HeartbeatDetector",
-    "HierarchicalCollectives", "Legion", "LegionTopology", "LegioExecutor",
+    "HierarchicalCollectives", "Legion", "LegionCheckpointer", "LegionTopology",
+    "LegioExecutor",
     "LegioPolicy", "LevelGroup", "LinkModel", "NodeState",
     "NonblockingSubstituteStrategy", "OpStatus", "PendingSubstitution",
     "PipelineTrace", "RECOVERY_MODES", "RecoveryAction", "RecoveryStrategy",
-    "RepairReport", "RepairScope", "RepairStep", "RestoreOutcome",
-    "RootFailedError", "ShrinkCostModel", "ShrinkEngine", "ShrinkStrategy",
+    "RepairReport", "RepairScope", "RepairStep", "ResilientTrainer",
+    "RestartRecord", "RestoreOutcome", "RootFailedError", "ShrinkCostModel", "ShrinkEngine", "ShrinkStrategy",
     "SparePool", "SparePoolExhausted", "SpareProvisioner", "StaleLegionError",
     "StepReport", "StragglerDetector", "SubstituteCostModel",
     "SubstituteEngine", "SubstituteStrategy", "TopologyTornError",
-    "TopologyView", "UnfilledSlot", "VirtualCluster", "agree_fault",
+    "TopologyView", "TrainerReport", "UnfilledSlot", "VirtualCluster", "agree_fault",
     "agreement_rounds", "agreement_time", "available_strategies",
     "eq3_s_of_k", "eq4_s_of_k", "failures_by_legion", "flat_collective_time",
     "gradient_scale", "initial_assignment", "make_strategy", "make_topology",
+    "make_train_step",
     "notice_fault", "optimal_k_linear", "optimal_k_quadratic", "optimal_kd",
     "reassign", "register_strategy", "restore_for_substitute",
     "restore_member_state", "restore_rank", "substitute_assign",

@@ -147,6 +147,7 @@ class VirtualCluster:
         # import keeps the module graph acyclic (dist.dataplane never
         # imports repro_torch.core)
         from repro_torch.dist.dataplane import make_dataplane
+        self.device = device            # the trainer's device too
         self.dataplane = make_dataplane(self.policy, device)
         self.reshards: list[Any] = []   # reshard report log (multi-card planes)
 

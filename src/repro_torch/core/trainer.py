@@ -1,0 +1,255 @@
+"""ResilientTrainer — data-parallel training under the Legio runtime.
+
+The integration of the paper's technique: a training step wrapped so node
+failures are survived by *discard-and-continue* rather than a global
+restart:
+
+  * the virtual cluster's nodes each own one data-parallel batch shard;
+  * a failure (injected here) triggers the Legio repair path (agreement,
+    hierarchical shrink, master re-election) at the step boundary, and the
+    step runs on the survivors' shards;
+  * the global batch shrinks (DROP) or redistributes (REBALANCE); the loss
+    is the mean over the shards actually computed, so the gradient
+    estimator stays unbiased (the paper's Monte-Carlo argument, applied to
+    stochastic gradients);
+  * per-legion checkpoints (``cr.py``) bound the loss of a non-recoverable
+    event, and restart-only-failed brings a replacement back without
+    touching survivors.
+
+One device holds the whole step: the global batch is the survivors' shards
+concatenated, as the JAX package's single-program step sees it. The
+trainer runs on its cluster's ``device`` ("cuda" unless the cluster was
+built with ``device="cpu"``; without a card "cuda" raises). The JAX
+package also builds a device pool, a mesh manager and a compile cache
+here; its loop never reads them, and on one card there is no mesh to
+rebuild, so they come with the multi-card work. ``TrainerReport.recompiled``
+keeps its meaning: the step saw a mesh change (a repair or an expansion).
+"""
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.cr import LegionCheckpointer
+from repro_torch.core.executor import VirtualCluster
+from repro_torch.core.types import RepairReport
+from repro_torch.data.pipeline import host_batch_numpy
+from repro_torch.device import resolve_device
+from repro_torch.models import api
+from repro_torch.optim.adamw import (
+    OptState,
+    adamw_init,
+    adamw_update_,
+    clip_by_global_norm_,
+    cosine_schedule,
+    tree_leaves,
+    tree_map,
+)
+
+PyTree = Any
+
+
+@dataclass
+class TrainerReport:
+    step: int
+    loss: float
+    grad_norm: float
+    active_shards: int
+    grad_scale: float
+    repair: RepairReport | None = None
+    recompiled: bool = False
+    step_seconds: float = 0.0
+    metrics: dict = field(default_factory=dict)
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+    """(params, opt, batch, grad_scale) -> (params, opt, metrics).
+
+    The JAX package's jitted step: value-and-grad of the scaled loss,
+    global-norm clipping, AdamW. Parameters and moments are updated in
+    place, leaf by leaf (the JAX step donates them); the same tensors come
+    back.
+    """
+    lr_fn = cosine_schedule(tc)
+
+    def train_step(params: PyTree, opt: OptState, batch: dict, grad_scale: float):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = api.train_loss(cfg, params, batch)
+            grads = torch.autograd.grad(loss * grad_scale, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        grads = _retree_leaves(params, iter(grads))
+        with torch.no_grad():
+            gnorm = clip_by_global_norm_(grads, tc.grad_clip)
+            opt = adamw_update_(grads, opt, params, tc, lr_fn(opt.step))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = gnorm
+        return params, opt, metrics
+
+    return train_step
+
+
+def _retree_leaves(template: PyTree, leaves) -> PyTree:
+    """``template``'s dict structure over the iterator ``leaves``, which
+    yields them in ``tree_leaves`` order (sorted keys)."""
+    if isinstance(template, dict):
+        return {k: _retree_leaves(template[k], leaves) for k in sorted(template)}
+    return next(leaves)
+
+
+class ResilientTrainer:
+    """Data-parallel training loop with Legio fault resiliency."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        tc: TrainConfig,
+        cluster: VirtualCluster,
+        *,
+        per_shard_batch: int = 4,
+        seq_len: int = 128,
+        checkpointer: LegionCheckpointer | None = None,
+    ):
+        self.cfg, self.tc = cfg, tc
+        self.cluster = cluster
+        self.device = resolve_device(cluster.device)
+        self.per_shard_batch = per_shard_batch
+        self.seq_len = seq_len
+        self.checkpointer = checkpointer
+        if checkpointer is not None and cluster.checkpointer is None:
+            # substituted ranks restore from the same per-legion store
+            cluster.checkpointer = checkpointer
+        # all fault plumbing rides the MPI facade: the session owns the
+        # step boundary (spare delivery, splice re-expansion, ground-truth
+        # injection) and the INJECTED-channel drain
+        from repro_torch.mpi import Session
+
+        self.session = Session.adopt(cluster)
+        self.train_step = make_train_step(cfg, tc)
+        gen = torch.Generator(device=self.device).manual_seed(tc.seed)
+        self.params = api.init_params(cfg, gen, self.device)
+        self.opt = adamw_init(self.params)
+        self.step = 0
+        self.history: list[TrainerReport] = []
+        # live state rides the data plane: after every shrink or regrow the
+        # plane re-places it (a no-op while one device holds every node)
+        self.session.register_sharded_state(
+            "trainer.params", lambda: self.params,
+            lambda p: setattr(self, "params", p))
+        self.session.register_sharded_state(
+            "trainer.opt.mu", lambda: self.opt.mu,
+            lambda mu: setattr(self, "opt", self.opt._replace(mu=mu)))
+        self.session.register_sharded_state(
+            "trainer.opt.nu", lambda: self.opt.nu,
+            lambda nu: setattr(self, "opt", self.opt._replace(nu=nu)))
+
+    # -- batch assembly under the current plan --------------------------------------
+
+    def _global_batch(self, step: int) -> tuple[dict, float]:
+        shards = sorted(s for a in self.cluster.plan.assignments for s in a.shards)
+        if not shards:
+            raise RuntimeError("no surviving shards — cluster exhausted")
+        parts = [host_batch_numpy(self.tc.seed, step, s, batch=self.per_shard_batch,
+                                  seq_len=self.seq_len, vocab_size=self.cfg.vocab_size)
+                 for s in shards]
+        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(self.device)
+                 for k in parts[0]}
+        # mean-over-present-shards is already the renormalised estimator:
+        # grad_scale stays 1.0 for DROP (the mean's denominator shrank with
+        # the batch); it differs from 1 only for weighted schemes
+        return batch, 1.0
+
+    # -- one resilient step -----------------------------------------------------------
+
+    def run_step(self) -> TrainerReport:
+        cl = self.cluster
+        t0 = time.perf_counter()
+        step = self.step
+
+        # step boundary through the facade: re-spawned spares and warmed-up
+        # substitutes rejoin before shards are handed out, and ground-truth
+        # faults land and drain through the pipeline's INJECTED channel
+        # (detect → notice → agree → plan → apply). charge=False: the
+        # trainer's clock is wall time.
+        boundary = self.session.boundary(step, observe_injected=True, charge=False)
+        repair = None
+        recompiled = bool(boundary.expansions)
+        if boundary.actions:
+            repair = boundary.actions[0].report
+            recompiled = True  # a mesh change
+
+        batch, grad_scale = self._global_batch(step)
+        self.params, self.opt, metrics = self.train_step(
+            self.params, self.opt, batch, grad_scale)
+
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise FloatingPointError(f"non-finite loss at step {step}: {loss}")
+
+        if self.checkpointer is not None and self.tc.checkpoint_every > 0 \
+                and step > 0 and step % self.tc.checkpoint_every == 0:
+            self.checkpointer.save(step, cl.topo, self._state_of, sync=False)
+
+        report = TrainerReport(
+            step=step,
+            loss=loss,
+            grad_norm=float(metrics.get("grad_norm", 0.0)),
+            active_shards=cl.plan.active_shards,
+            grad_scale=grad_scale,
+            repair=repair,
+            recompiled=recompiled,
+            step_seconds=time.perf_counter() - t0,
+            metrics={k: float(v) for k, v in metrics.items() if v.dim() == 0},
+        )
+        self.history.append(report)
+        self.step += 1
+        return report
+
+    def _state_of(self, node: int) -> PyTree:
+        """Member state shard for checkpointing.
+
+        Data-parallel state is replicated, so every member's shard is the
+        (params, opt, step) triple plus its shard assignment: a replacement
+        node needs nothing from survivors beyond its own file (§VII).
+        """
+        shards = list(self.cluster.plan.shards_of(node)) or [-1]
+        return {
+            "params": self.params,
+            "opt": {"step": self.opt.step, "mu": self.opt.mu, "nu": self.opt.nu},
+            "meta": {
+                "step": torch.tensor(self.step, dtype=torch.int32),
+                "shards": torch.tensor(shards, dtype=torch.int32),
+            },
+        }
+
+    def run(self, n_steps: int) -> list[TrainerReport]:
+        return [self.run_step() for _ in range(n_steps)]
+
+    # -- restart-only-failed -----------------------------------------------------------
+
+    def restore_from(self, checkpointer: LegionCheckpointer,
+                     legion: int, node: int) -> None:
+        state = checkpointer.restore_failed_member(legion, node, template=None)
+        self.params = _retree(self.params, state["params"])
+        self.opt = OptState(
+            step=state["opt"]["step"].to(self.device, torch.int32),
+            mu=_retree(self.opt.mu, state["opt"]["mu"]),
+            nu=_retree(self.opt.nu, state["opt"]["nu"]),
+        )
+        self.step = int(state["meta"]["step"])
+
+
+def _retree(template: PyTree, loaded: PyTree) -> PyTree:
+    """``loaded``'s leaves in ``template``'s structure, dtype, shape and device."""
+    return tree_map(lambda t, x: x.to(t.device, t.dtype).reshape(t.shape).contiguous(),
+                    template, loaded)

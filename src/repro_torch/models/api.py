@@ -5,6 +5,7 @@ that create tensors take a ``device`` (the card unless the caller asks for
 the CPU), and the rest run where their inputs live:
 
   init_params(cfg, generator, device)          -> params pytree
+  train_loss(cfg, params, batch)               -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)      -> decode cache
   prefill(cfg, params, tokens, max_len)        -> (last logits, cache)
   decode_step(cfg, params, cache, tokens)      -> (logits, cache)
@@ -12,7 +13,7 @@ the CPU), and the rest run where their inputs live:
 
 Families: dense and hybrid go to ``transformer``, ssm to ``mamba``; MoE,
 VLM and encoder-decoder raise ``NotImplementedError`` naming their later
-slice. ``train_loss`` comes with the training slice.
+slice.
 """
 from __future__ import annotations
 
@@ -46,6 +47,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     return _mod(cfg).init_params(cfg, generator, dev)
+
+
+def train_loss(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]):
+    """(scalar loss, metrics) of ``batch`` (tokens, labels), differentiable.
+
+    Training runs through the plain paths (``blocked_attention``, the plain
+    SSD scan), as the JAX package's does: its Pallas kernels cannot be
+    differentiated, and the port's kernels are forward-only.
+    """
+    if cfg.use_pallas:
+        raise ValueError(
+            f"{cfg.name}: train_loss with use_pallas=True: the JAX package cannot "
+            "differentiate its Pallas kernels and the port's kernels are forward-only; "
+            "train with use_pallas=False (blocked attention, the plain SSD scan)")
+    return _mod(cfg).train_loss(cfg, params, batch)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

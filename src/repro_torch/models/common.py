@@ -8,7 +8,9 @@ a PyTorch habit would be wrong here:
   * RoPE rotates split halves (``[x1, x2] -> [x1 cos - x2 sin, x2 cos + x1 sin]``),
     not interleaved pairs, with angles taken in fp32 from fp32 positions.
 
-``cross_entropy_chunked`` belongs to training and is not ported yet.
+``cross_entropy_chunked`` is the training loss: fp32 logits a sequence chunk
+at a time, each chunk checkpointed so no chunk's logits are kept for the
+backward.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -24,10 +27,17 @@ def torch_dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s parameters as views into the stacked ``(L, ...)`` tensors."""
-    return {name: (layer_params(sub, i) if isinstance(sub, dict) else sub[i])
-            for name, sub in layers.items()}
+def layer_params(layers: dict) -> list[dict]:
+    """Each layer's parameters as views into the stacked ``(L, ...)`` tensors.
+
+    Every stacked leaf is ``unbind``-ed once, so under autograd its gradient
+    is one stacked ``(L, ...)`` buffer; indexing ``leaf[i]`` per layer would
+    give each ``select``'s backward a zero gradient of the whole leaf.
+    """
+    per_leaf = {name: (layer_params(sub) if isinstance(sub, dict) else sub.unbind(0))
+                for name, sub in layers.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{name: views[i] for name, views in per_leaf.items()} for i in range(n)]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -107,3 +117,59 @@ def embed_init(out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     torch.nn.init.normal_(tmp, 0.0, 1.0, generator=generator)
     out.copy_(tmp * 0.02)
     return out
+
+
+# ----------------------------------------------------------------------------
+# Loss
+# ----------------------------------------------------------------------------
+
+def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, y: torch.Tensor,
+                logits_softcap: float):
+    """One chunk's (sum of NLL, sum of lse**2, correct count). The bf16
+    operands are upcast, so the products are exact and summed in fp32, as
+    the reference's ``preferred_element_type=float32`` einsum."""
+    logits = h.float() @ unembed.float().T                            # (B, c, V)
+    logits = softcap(logits, logits_softcap)
+    lse = torch.logsumexp(logits, dim=-1)                            # (B, c)
+    tgt = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    correct = (torch.argmax(logits, dim=-1) == y).sum()
+    return torch.sum(lse - tgt), torch.sum(torch.square(lse)), correct
+
+
+def cross_entropy_chunked(
+    hidden: torch.Tensor,       # (B, S, D)
+    unembed: torch.Tensor,      # (V, D)
+    labels: torch.Tensor,       # (B, S) integer
+    *,
+    chunk: int,
+    z_loss_weight: float = 0.0,
+    logits_softcap: float = 0.0,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Mean NLL over all tokens without materialising (B, S, V) logits.
+
+    Walks sequence chunks; each computes fp32 logits, their logsumexp and the
+    target logit. Each chunk is checkpointed (recomputed in the backward), so
+    the (B, chunk, V) fp32 logits of one chunk at a time are alive: at
+    llama-3B scale that is the largest buffer of a step.
+    """
+    B, S, _ = hidden.shape
+    n_chunks = max(S // chunk, 1)
+    chunk = S // n_chunks
+    if S % chunk:
+        raise ValueError(f"seq {S} not divisible by xent chunk {chunk}")
+    nll_sum = z_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    correct = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        nll, z, corr = checkpoint(_xent_chunk, hidden[:, sl], unembed, labels[:, sl],
+                                  logits_softcap, use_reentrant=False)
+        nll_sum, z_sum, correct = nll_sum + nll, z_sum + z, correct + corr
+    n_tok = B * S
+    loss = nll_sum / n_tok
+    z_loss = z_loss_weight * z_sum / n_tok
+    metrics = {
+        "nll": loss,
+        "z_loss": z_loss,
+        "accuracy": correct.float() / n_tok,
+    }
+    return loss + z_loss, metrics

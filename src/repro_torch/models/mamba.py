@@ -3,6 +3,8 @@
 The JAX package's ``models/mamba.py`` with its pytree: ``embed``,
 ``final_norm`` and ``layers/{norm, ssm/...}``, every leaf under ``layers``
 stacked ``(L, ...)``. Its ``lax.scan`` over layers is a Python loop here.
+``train_loss`` is the reference's chunked cross-entropy against the tied
+embedding.
 
 The cache is ``{"pos": int, "conv": (L, B, K-1, C), "state": (L, B, H, P, N)
 fp32}``, O(1) in sequence length. ``decode_step`` writes each layer's new
@@ -15,10 +17,17 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.common import embed_init, layer_params, rms_norm, torch_dtype
+from repro_torch.models.common import (
+    cross_entropy_chunked,
+    embed_init,
+    layer_params,
+    rms_norm,
+    torch_dtype,
+)
 
 Params = dict[str, Any]
 
@@ -61,19 +70,42 @@ def _logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     return hidden.float() @ params["embed"].float().T
 
 
+def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor):
+    out, cache = ssd_mod.mamba_block(cfg, lp["ssm"], rms_norm(x, lp["norm"], cfg.norm_eps))
+    return x + out, cache
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    collect_state: bool = False):
-    """tokens: (B,S). Returns (hidden (B,S,D), per-layer ``SSMCache`` list or None)."""
+    """tokens: (B,S). Returns (hidden (B,S,D), per-layer ``SSMCache`` list or None).
+
+    Without ``collect_state`` and with any ``cfg.remat`` but ``"none"``, each
+    layer runs under ``torch.utils.checkpoint``, as the reference applies
+    ``jax.checkpoint`` to its layer body.
+    """
     x = _embed(cfg, params, tokens)
+    remat = cfg.remat != "none" and not collect_state
     caches = []
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        h = rms_norm(x, lp["norm"], cfg.norm_eps)
-        out, cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
-        x = x + out
+    for lp in layer_params(params["layers"]):
+        if remat:
+            x = checkpoint(_layer_fwd, cfg, lp, x, use_reentrant=False)[0]
+            continue
+        x, cache = _layer_fwd(cfg, lp, x)
         if collect_state:
             caches.append(cache)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), (caches if collect_state else None)
+
+
+def train_loss(cfg: ModelConfig, params: Params,
+               batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    """batch: tokens (B,S), labels (B,S). Returns (scalar loss, metrics)."""
+    hidden, _ = forward_hidden(cfg, params, batch["tokens"])
+    loss, metrics = cross_entropy_chunked(
+        hidden, params["embed"], batch["labels"], chunk=cfg.xent_chunk,
+        z_loss_weight=cfg.z_loss_weight,
+    )
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -96,8 +128,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """tokens: (B, 1). Returns (logits (B,1,V) fp32, cache updated in place)."""
     x = _embed(cfg, params, tokens)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(layer_params(params["layers"])):
         h = rms_norm(x, lp["norm"], cfg.norm_eps)
         out, new = ssd_mod.mamba_decode_step(
             cfg, lp["ssm"], h, ssd_mod.SSMCache(conv=cache["conv"][i], state=cache["state"][i]))

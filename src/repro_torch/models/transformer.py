@@ -15,15 +15,19 @@ windowed attention and a Mamba-2 block side by side on the same input,
 cache **in place** and returns the same tensors, where the JAX package
 returns fresh arrays; a caller that needs the old cache clones it first.
 
-Settings for training or for many devices (``remat``, ``scan_block``,
-``fsdp_gather``, ``act_shard``) are ignored: on one chip the reference's
-sharding constraints are identity maps. MoE and VLM are not ported yet.
+``train_loss`` is the reference's: the chunked fp32 cross-entropy over the
+final hidden states, with ``remat="full"`` checkpointing each layer and
+``"none"`` keeping every activation; ``"dots"`` and ``scan_block > 0`` (no
+config uses them) raise. Settings for many devices (``fsdp_gather``,
+``act_shard``) are ignored: on one chip the reference's sharding
+constraints are identity maps. MoE and VLM are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssd as ssd_mod
@@ -31,6 +35,7 @@ from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import (
     activation_fn,
     apply_rope,
+    cross_entropy_chunked,
     dense_init,
     embed_init,
     layer_params,
@@ -138,7 +143,7 @@ def unembed_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # ----------------------------------------------------------------------------
 
 def _attn_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor,
@@ -171,39 +176,70 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
     return x
 
 
+def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor):
+    """One block. Returns (x, k, v, ssm cache or None)."""
+    hybrid = cfg.family == "hybrid"
+    window = cfg.hybrid_attn_window if hybrid else None
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    attn_out, k, v = _attn_branch(cfg, lp["attn"], h, positions, window=window)
+    ssm_cache = None
+    if hybrid:
+        ssm_out, ssm_cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
+        x = x + 0.5 * (attn_out + ssm_out)
+    else:
+        x = x + attn_out
+    h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + _mlp_branch(cfg, lp["mlp"], h2), k, v, ssm_cache
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    *, collect_kv: bool = False):
     """tokens: (B,S) integer. Returns (hidden (B,S,D), kv or None).
 
     ``kv`` is ``(k, v, ssm)``: k and v stacked ``(L, B, S, K, hd)``, and for
-    the hybrid family the per-layer ``SSMCache`` list (else None).
+    the hybrid family the per-layer ``SSMCache`` list (else None). Without
+    ``collect_kv`` and with ``cfg.remat == "full"``, each layer runs under
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward rather than kept, as the reference's ``jax.checkpoint``.
     """
     check_family(cfg)
-    hybrid = cfg.family == "hybrid"
-    window = cfg.hybrid_attn_window if hybrid else None
     x = _embed(cfg, params, tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
+    remat = cfg.remat == "full" and not collect_kv
     ks, vs, ssm = [], [], []
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        attn_out, k, v = _attn_branch(cfg, lp["attn"], h, positions, window=window)
-        if hybrid:
-            ssm_out, ssm_cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
-            x = x + 0.5 * (attn_out + ssm_out)
-        else:
-            x = x + attn_out
-        h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _mlp_branch(cfg, lp["mlp"], h2)
+    for lp in layer_params(params["layers"]):
+        if remat:
+            x = checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False)[0]
+            continue
+        x, k, v, ssm_cache = _layer_fwd(cfg, lp, x, positions)
         if collect_kv:
             ks.append(k)
             vs.append(v)
-            if hybrid:
+            if ssm_cache is not None:
                 ssm.append(ssm_cache)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    kv = (torch.stack(ks), torch.stack(vs), ssm if hybrid else None) if collect_kv else None
+    kv = (torch.stack(ks), torch.stack(vs), ssm or None) if collect_kv else None
     return x, kv
+
+
+def train_loss(cfg: ModelConfig, params: Params,
+               batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    """batch: tokens (B,S), labels (B,S). Returns (scalar loss, metrics)."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r} is not ported "
+                                  "(no config uses it); use 'full' or 'none'")
+    if cfg.scan_block:
+        raise NotImplementedError(f"{cfg.name}: scan_block={cfg.scan_block} (the two-level "
+                                  "layer scan) is not ported; no config uses it")
+    hidden, _ = forward_hidden(cfg, params, batch["tokens"])
+    loss, metrics = cross_entropy_chunked(
+        hidden, unembed_matrix(cfg, params), batch["labels"],
+        chunk=cfg.xent_chunk, z_loss_weight=cfg.z_loss_weight,
+        logits_softcap=cfg.logits_softcap,
+    )
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -311,9 +347,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     else:
         valid = (torch.arange(C, device=x.device) <= pos)[None, :].expand(B, C)
     names = [n for n in ("k", "v", "conv", "state") if n in cache]
-    for i in range(cfg.n_layers):
-        x = _decode_layer(cfg, layer_params(params["layers"], i), x,
-                          {n: cache[n][i] for n in names}, pos, valid)
+    for i, lp in enumerate(layer_params(params["layers"])):
+        x = _decode_layer(cfg, lp, x, {n: cache[n][i] for n in names}, pos, valid)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1

@@ -1,5 +1,16 @@
-"""Optimizer-side pieces. This slice holds the gradient compressors of the
-compression hop; AdamW comes with the trainer slice."""
+"""Optimizer-side pieces: AdamW with its cosine schedule and global-norm
+clipping, and the gradient compressors of the compression hop."""
+from repro_torch.optim.adamw import (
+    OptState,
+    adamw_init,
+    adamw_update,
+    adamw_update_,
+    apply_updates,
+    clip_by_global_norm,
+    clip_by_global_norm_,
+    cosine_schedule,
+    global_norm,
+)
 from repro_torch.optim.compression import (
     compress_int8,
     compress_topk,
@@ -9,9 +20,18 @@ from repro_torch.optim.compression import (
 )
 
 __all__ = [
+    "OptState",
+    "adamw_init",
+    "adamw_update",
+    "adamw_update_",
+    "apply_updates",
+    "clip_by_global_norm",
+    "clip_by_global_norm_",
     "compress_int8",
     "compress_topk",
     "compressed_bytes",
+    "cosine_schedule",
     "decompress_int8",
     "decompress_topk",
+    "global_norm",
 ]

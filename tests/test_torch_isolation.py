@@ -60,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.convert, repro_torch.configs, "
             "repro_torch.models.mamba, repro_torch.models.ssd, "
             "repro_torch.core, repro_torch.mpi, repro_torch.dist.dataplane, "
-            "repro_torch.checkpoint, repro_torch.optim, repro_torch.data\n"
+            "repro_torch.checkpoint, repro_torch.optim, repro_torch.data, "
+            "repro_torch.launch.train, repro_torch.core.trainer, "
+            "repro_torch.checkpoint.store, repro_torch.data.threefry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
