@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3 for flash and SSD, then stop
     python3 chip_smoke.py --train-only     # phases 1 and 8, then stop
+    python3 chip_smoke.py --serve-only     # phases 1-2, 5-6 and 9, then stop
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
@@ -46,19 +47,29 @@ never JAX or the JAX package, and runs, in order:
      logits with ``use_pallas`` on and off, each held against the same
      weights run in fp32; and the three smoke configs in f32, greedy tokens
      with the kernels against without;
-  5. serve at full width: ``ResilientServer`` on llama3.2-3b (28 layers,
-     prompts of 1024), hymba-1.5b (32 layers, d=1600, prompts of 2048, past
-     its 1024 window) and mamba2-130m (24 layers, prompts of 2048), each
-     2 nodes x 4 requests and 16 generated tokens; every request must
-     complete, and each kernel must have launched once per layer per
-     prefill on the paths that run it (launch counts zeroed just before
-     each run and read just after); each model's server is freed before
-     the next one is built, so each peak memory is that model's own;
-  6. where the time goes: right after each model's serve run, one prefill
-     and one decode step at the serve shape under
-     ``torch.profiler``: the device's busy share and the kernels that take
-     most of it;
-  7. the Legio runtime, this slice's main path: ``Session(16)`` with legions
+  5. serve at full width through the engine, through a fault:
+     ``ResilientServer`` over ``ServeEngine`` and ``Session(4)`` in legions
+     of 2 with the shrink preset and fault (0, 1), 4 requests a node, 16
+     requests and 16 generated tokens, on llama3.2-3b (28 layers, prompts
+     of 1024), hymba-1.5b (32 layers, d=1600, prompts of 2048, past its
+     1024 window) and mamba2-130m (24 layers, prompts of 2048), each run
+     continuous and then lock-step. Every request must complete exactly
+     once with 16 in-vocab tokens, 3 nodes must survive one repair, and
+     the rounds, requeues, ``p99_latency_sim`` and the request ids of every
+     work_fn call must equal SERVE_PINNED (pinned from the JAX package's
+     engine by tests/test_torch_serve_engine.py); the two modes must serve
+     the same tokens; each kernel must have launched once per layer per
+     work_fn call on the paths that run it and never elsewhere (counts
+     zeroed just before each run and read just after). Each run prints its
+     report, its RoundReports, wall seconds, tokens/s and peak memory;
+     each model's servers are freed (``gc.collect``) before the next
+     model's are built, and the memory still held is checked, so each
+     peak is that model's own;
+  6. where the time goes: after each model's continuous run, the
+     steady-state prefill and decode times at B=4 and one prefill and one
+     decode step under ``torch.profiler``: the device's busy share and the
+     kernels that take most of it;
+  7. the Legio runtime, the runtime's main path: ``Session(16)`` with legions
      of 4, int8 compression on the cross-legion hop, the torch data plane
      on the card and examples/transparent_mpi.py's faults (2, 9), (5, 4),
      (7, 11); ten ``comm.allreduce`` calls over the live ranks, each rank's
@@ -71,7 +82,7 @@ never JAX or the JAX package, and runs, in order:
      the kernels (byte-identical each step), at 1,048,576 elements against
      the sim plane on the host (byte-identical results, stages and
      ``sim_seconds``), and with 1-element payloads (the host's share);
-  8. the resilient trainer, this slice's main path (the earlier phases'
+  8. the resilient trainer, the trainer's main path (the earlier phases'
      tensors freed first):
      - llama3.2-3b cut to 2 layers at full width, weights drawn on the CPU:
        ``train_loss`` and its gradients on the card against the CPU in
@@ -87,14 +98,18 @@ never JAX or the JAX package, and runs, in order:
        kernels are forward-only; training runs the plain paths, as the JAX
        package's does); per-step loss, wall ms and tokens/s, the peak
        memory, and one fault-free step under the profiler;
-     - full-width mamba2-130m for 3 fault-free steps the same way.
+     - full-width mamba2-130m for 3 fault-free steps the same way;
+  9. the fault zoo: ``ChaosHarness(seed=0).run_matrix(64)`` with every
+     cluster's torch data plane on the card; all 50 (scenario x recovery
+     x workload) reports must pass their invariants.
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
 kernels' JSON record (each kernel's time, bound and share of the bound,
-its launches on every path, the train runs' included) and ``{"ok": true,
-"device": {...}}``; ``--kernels-only`` and ``--train-only`` print neither
-of the last two.
+its launches on every path: each model's continuous serve run under its
+name, the lock-step run under "<name>/lockstep", the train runs' too) and
+``{"ok": true, "device": {...}}``; ``--kernels-only``, ``--train-only``
+and ``--serve-only`` print neither of the last two.
 """
 from __future__ import annotations
 
@@ -132,6 +147,13 @@ FIRST_LAUNCH_TIMEOUT_S = 60   # a new kernel's first launch: longer means a hang
 # SHA-256 of make_batch(0, 0, 0, batch=1, seq_len=1024, vocab_size=128256)'s
 # int32 tokens as jax produces them; tests/test_torch_data.py pins it from jax
 MAKE_BATCH_SHA256 = "8351c80a8896cea2b658f5e7faa50a757eec07c935177296238d9a3a05277bea"
+# phase 5's serve runs (4 nodes in legions of 2, shrink, fault (0, 1), 4
+# requests a node, 16 requests), continuous and lock-step alike: what the
+# reference engine decides, and the requests of each work_fn call in order;
+# tests/test_torch_serve_engine.py pins these from the reference
+SERVE_NODES, SERVE_LEGION, SERVE_PER_NODE, SERVE_REQUESTS, SERVE_FAULT = 4, 2, 4, 16, (0, 1)
+SERVE_PINNED = {"rounds": 2, "requeues": 4, "p99_latency_sim": 2.13,
+                "work_fn_calls": [[0, 1, 2, 3], [8, 9, 10, 11], [12, 13, 14, 15], [7, 6, 5, 4]]}
 
 
 def card_line() -> str:
@@ -355,7 +377,7 @@ def draw_grad(torch, dev, rank, step, n):
 
 
 def runtime_run(torch, P, PM, dev, n, plane, keep=True, sync=True):
-    """The slice's main path: Session(16) with int8 compression and the
+    """The runtime's main path: Session(16) with int8 compression and the
     transparent_mpi fault script, one allreduce over the live ranks a step.
     Returns (session, per-step records)."""
     sess = PM.Session(RUNTIME_NODES,
@@ -467,7 +489,7 @@ def quantize_phase(torch, np, C, Q, dev) -> dict:
 
 
 def runtime_phase(torch, P, PM, ops, Q, dev, counters) -> dict:
-    """Phase 7, the slice's main path: the Legio runtime at full size with
+    """Phase 7, the runtime's main path: the Legio runtime at full size with
     every kernel's count zeroed just before and read just after; then the
     same script with the plain versions (byte-identical per step), at
     1,048,576 elements against the sim plane on the host, and with
@@ -548,6 +570,179 @@ def runtime_phase(torch, P, PM, ops, Q, dev, counters) -> dict:
           f"launches): median {statistics.median(host_ms):.3f} ms, per step "
           f"{[round(t, 3) for t in host_ms]}")
     return rt_launches
+
+
+# ---- serving through the engine (phases 5-6) and the fault zoo (phase 9) ---
+SERVE_MODELS = (("llama3.2-3b", 1024), ("hymba-1.5b", 2048), ("mamba2-130m", 2048))
+SERVE_DECODE = 16
+SERVE_HELD_SLACK = 2 ** 29     # bytes a freed model may leave allocated (caches, workspaces)
+CHAOS_NODES, CHAOS_REPORTS = 64, 50
+
+
+def serve_run(torch, P, PM, serve_mod, cfg, prompt_len, dev, counters, *, continuous):
+    """One model through the engine: ``Session(SERVE_NODES)`` in legions of
+    SERVE_LEGION, shrink, fault SERVE_FAULT, SERVE_PER_NODE requests a node,
+    SERVE_REQUESTS requests. Every kernel's count is zeroed just before
+    ``run`` and read just after; the work_fn calls (their request ids) and the
+    engine's RoundReports are recorded by wrapping the server's methods.
+    Returns (server, report, launches, calls, round reports, peak bytes)."""
+    session = PM.Session(SERVE_NODES, policy=P.LegioPolicy(
+        legion_size=SERVE_LEGION, **serve_mod.recovery_preset("shrink")),
+        injector=P.FaultInjector.at([SERVE_FAULT]), device=dev)
+    server = serve_mod.ResilientServer(
+        cfg, session, prompt_len=prompt_len, decode_tokens=SERVE_DECODE,
+        batch_per_node=SERVE_PER_NODE, continuous=continuous, device=dev)
+    calls, reports = [], []
+    work_batch, run_round = server._work_batch, server.engine.run_round
+
+    def counted_work_batch(request_ids):
+        calls.append(list(request_ids))
+        return work_batch(request_ids)
+
+    def recorded_round(step=None):
+        reports.append(run_round(step))
+        return reports[-1]
+
+    server._work_batch = counted_work_batch
+    server.engine.run_round = recorded_round
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    rep = server.run(SERVE_REQUESTS)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return server, rep, launches, calls, reports, torch.cuda.max_memory_allocated()
+
+
+def check_serve_run(cfg, mode, rep, launches, calls, completed):
+    """Phase 5's checks of one run: every request completed once, the
+    reference's recovery and dispatch (SERVE_PINNED), in-vocab rows of
+    SERVE_DECODE tokens, and each kernel launched once per layer per work_fn
+    call on the families that run it and nowhere else."""
+    label = f"{cfg.name}/{mode}"
+    if (rep["completed"], rep["abandoned"], rep["shed"], rep["unserved"]) != \
+            (SERVE_REQUESTS, 0, 0, 0) or sorted(completed) != list(range(SERVE_REQUESTS)):
+        raise AssertionError(f"{label}: not every request completed exactly once: {rep}")
+    if (rep["survivors"], rep["repairs"]) != (SERVE_NODES - 1, 1):
+        raise AssertionError(f"{label}: expected {SERVE_NODES - 1} survivors and 1 repair: {rep}")
+    got = {"rounds": rep["rounds"], "requeues": rep["requeues"],
+           "p99_latency_sim": rep["p99_latency_sim"], "work_fn_calls": calls}
+    if got != SERVE_PINNED:
+        raise AssertionError(f"{label}: {got} differs from the reference's {SERVE_PINNED}")
+    for rid, row in completed.items():
+        if row.shape != (SERVE_DECODE,) or not ((0 <= row) & (row < cfg.vocab_size)).all():
+            raise AssertionError(f"{label} request {rid}: bad tokens {row}")
+    expect = {"flash_attention": cfg.family in ("dense", "hybrid"),
+              "ssd_scan": cfg.family in ("hybrid", "ssm"),
+              "absmax": False, "quantize_int8": False}
+    for name, used in expect.items():
+        want = cfg.n_layers * len(calls) if used else 0
+        if launches[name] != want or (used and want == 0):
+            raise AssertionError(f"{label}: expected {want} {name} launches ({cfg.n_layers} "
+                                 f"per work_fn call), got {launches[name]}")
+
+
+def round_lines(reports) -> list[str]:
+    return [f"round {r.step}: dispatched {r.dispatched} completed_now {r.completed_now} "
+            f"requeued_now {r.requeued_now} verdicts "
+            f"{[sorted(a.verdict) for a in r.actions]} sim_seconds {r.sim_seconds!r} "
+            f"wall_seconds {r.wall_seconds:.3f}" for r in reports]
+
+
+def serve_phase(torch, P, PM, api, serve_mod, models, dev, counters) -> dict:
+    """Phases 5-6: each (config, prompt length) of ``models`` served through
+    the engine at full width, continuous and then lock-step, each run held
+    to check_serve_run and the two runs' tokens to each other (their
+    dispatch is the same, so their batches are). After the continuous run,
+    the steady-state prefill and decode times and one profiled prefill and
+    decode step (phase 6). Each model's servers are freed (``gc.collect``:
+    the engine's pipeline listener closes a cycle that holds the weights)
+    before the next one is built. Returns the launches by path."""
+    launches_by_path = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    for cfg, prompt_len in models:
+        arch = cfg.name
+        held = torch.cuda.memory_allocated()
+        print(f"[5] {arch}: {held} B allocated before its servers are built "
+              f"(phase 5 began with {base} B)")
+        if held > base + SERVE_HELD_SLACK:
+            raise AssertionError(f"{arch}: an earlier model's memory is still held")
+        tokens_by_mode = {}
+        for mode in ("continuous", "lockstep"):
+            server, rep, launches, calls, reports, peak = serve_run(
+                torch, P, PM, serve_mod, cfg, prompt_len, dev, counters,
+                continuous=mode == "continuous")
+            tok_s = rep["completed"] * SERVE_DECODE / rep["wall_seconds"]
+            n_params = api.count_params(server.params)
+            print(f"[5] serve {arch}/{mode} full width ({n_params / 1e9:.3f} B params, "
+                  f"{cfg.n_layers} layers, d={cfg.d_model}, vocab {cfg.vocab_size}), "
+                  f"{SERVE_NODES} nodes, fault {SERVE_FAULT}: {json.dumps(rep)}")
+            for line in round_lines(reports):
+                print(f"[5] {arch}/{mode} {line}")
+            print(f"[5] {arch}/{mode} kernel launches {json.dumps(launches)} over "
+                  f"{len(calls)} work_fn calls {calls}; wall_seconds {rep['wall_seconds']:.3f} "
+                  f"generated_tokens_per_s {tok_s:.2f} peak_mem_bytes {peak} "
+                  f"({peak / 2**30:.2f} GiB)")
+            check_serve_run(cfg, mode, rep, launches, calls, server.completed)
+            tokens_by_mode[mode] = dict(server.completed)
+            launches_by_path[arch if mode == "continuous" else f"{arch}/{mode}"] = launches
+            if mode == "continuous":
+                serve_timings(torch, api, server, arch, prompt_len)
+            del server
+            gc.collect()
+            torch.cuda.empty_cache()
+        same = all((tokens_by_mode["continuous"][r] == tokens_by_mode["lockstep"][r]).all()
+                   for r in range(SERVE_REQUESTS))
+        print(f"[5] {arch} tokens, continuous vs lock-step (same dispatch): "
+              f"{'identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{arch}: the two modes served different tokens")
+    return launches_by_path
+
+
+def serve_timings(torch, api, server, arch, prompt_len):
+    """Steady-state prefill and decode times at the serve shape (after the
+    counted run), then one step of each under the profiler (phase 6)."""
+    ptoks = server.prompts(list(range(SERVE_PER_NODE)))
+    total = prompt_len + SERVE_DECODE
+    with torch.no_grad():
+        prefill_ms = time_ms(torch, lambda: api.prefill(server.cfg, server.params, ptoks, total),
+                             runs=5, warmup=1)
+        _, cache = api.prefill(server.cfg, server.params, ptoks, total)
+        tok = ptoks[:, :1]
+        decode_ms = time_ms(torch, lambda: api.decode_step(server.cfg, server.params,
+                                                           dict(cache), tok),
+                            runs=10, warmup=2)
+    print(f"[5] {arch} prefill_ms_per_batch {prefill_ms:.3f} (B={SERVE_PER_NODE}, "
+          f"S={prompt_len}) decode_ms_per_token {decode_ms:.3f} (B={SERVE_PER_NODE})")
+    steps = (("prefill", lambda: api.prefill(server.cfg, server.params, ptoks, total)),
+             ("decode", lambda: api.decode_step(server.cfg, server.params, dict(cache), tok)))
+    for label, step in steps:
+        busy_ms, wall_ms, top = profile_step(torch, step)
+        print(f"[6] {arch} {label} (B={SERVE_PER_NODE}) under the profiler: wall "
+              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of "
+              f"wall); top: {top}")
+
+
+def chaos_phase(P, dev) -> dict:
+    """Phase 9: ``ChaosHarness(seed=0).run_matrix(CHAOS_NODES)`` with every
+    cluster's torch data plane on the card: each (scenario x recovery x
+    workload) report must pass its invariants."""
+    t0 = time.perf_counter()
+    reports = P.ChaosHarness(seed=0, device=dev).run_matrix(CHAOS_NODES)
+    seconds = time.perf_counter() - t0
+    passed = sum(r.passed for r in reports)
+    print(f"[9] chaos matrix, {CHAOS_NODES} nodes on {dev}: {passed} of {len(reports)} "
+          f"reports passed in {seconds:.3f} s")
+    for r in reports:
+        if not r.passed:
+            print(f"[9] {r.summary()}: {r.failures}")
+    if len(reports) != CHAOS_REPORTS or passed != len(reports):
+        raise AssertionError(f"chaos matrix: {passed} of {len(reports)} reports passed")
+    return {"reports": len(reports), "passed": passed, "seconds": seconds}
 
 
 # ---- training (phase 8) --------------------------------------------------
@@ -825,6 +1020,7 @@ def main(argv: list[str]) -> int:
 
     kernels_only = "--kernels-only" in argv  # phases 1-3 for flash and SSD, then stop
     train_only = "--train-only" in argv      # phases 1 and 8, then stop
+    serve_only = "--serve-only" in argv      # phases 1-2, 5-6 and 9, then stop
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -841,7 +1037,8 @@ def main(argv: list[str]) -> int:
         kernel_for,
     )
     from repro_torch.kernels.ssd_scan import CB_MIN_STATE, ssd_scan_cuda, ssd_scan_plain
-    from repro_torch.launch.serve import ResilientServer, greedy_generate
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import api
     from repro_torch.models.ssd import ssd_decode_step
     from repro_torch.optim import compression
@@ -873,6 +1070,14 @@ def main(argv: list[str]) -> int:
     for name, log in sorted(_build.build_logs.items()):
         for line in ptxas_summary(log):
             print(f"[2] ptxas {name}: {line}")
+    serve_models = [(get_config(arch), prompt_len) for arch, prompt_len in SERVE_MODELS]
+    if serve_only:
+        launches_by_path = serve_phase(torch, rt_core, rt_mpi, api, serve_mod, serve_models,
+                                       dev, counters)
+        chaos = chaos_phase(rt_core, dev)
+        print(json.dumps({"serve_only": {"launches_by_path": launches_by_path,
+                                         "chaos": chaos}}))
+        return 0
 
     # ---- 3. kernels vs plain on the card ---------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1126,80 +1331,14 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"{arch}: f32 greedy tokens differ with and without the kernels")
         del sparams
 
-    # ---- 5. serve at full width ------------------------------------------
-    nodes, per_node, n_req, n_dec = 2, 4, 8, 16
-    launches_by_path = {}
+    # ---- 5-6. serve at full width through the engine, through a fault ------
+    launches_by_path = serve_phase(torch, rt_core, rt_mpi, api, serve_mod, serve_models, dev,
+                                   counters)
 
-    def serve(arch, prompt_len):
-        cfg = get_config(arch)
-        server = ResilientServer(cfg, nodes=nodes, prompt_len=prompt_len, decode_tokens=n_dec,
-                                 batch_per_node=per_node, device=dev)
-        n_params = api.count_params(server.params)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        rep = server.run(n_req)
-        torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
-        print(f"[5] serve {arch} full width ({n_params / 1e9:.3f} B params, {cfg.n_layers} "
-              f"layers, d={cfg.d_model}, vocab {cfg.vocab_size}): {json.dumps(rep)}")
-        print(f"[5] {arch} kernel launches {json.dumps(launches)} over {rep['batches']} "
-              f"prefill calls; peak memory {peak / 2**30:.2f} GiB")
-        if rep["completed"] != n_req or rep["unserved"]:
-            raise AssertionError(f"{arch}: serve incomplete: {rep}")
-        expect = {"flash_attention": cfg.family in ("dense", "hybrid"),
-                  "ssd_scan": cfg.family in ("hybrid", "ssm"),
-                  "absmax": False, "quantize_int8": False}
-        for name, used in expect.items():
-            want = cfg.n_layers * rep["batches"] if used else 0
-            if launches[name] != want or (used and want == 0):
-                raise AssertionError(f"{arch}: expected {want} {name} launches "
-                                     f"({cfg.n_layers} per prefill), got {launches[name]}")
-        for rid, row in server.completed.items():
-            if row.shape != (n_dec,) or not ((0 <= row) & (row < cfg.vocab_size)).all():
-                raise AssertionError(f"{arch} request {rid}: bad tokens {row}")
-
-        # steady-state phase times at the serve shape (after the counted run)
-        ptoks = server.prompts(list(range(per_node)))
-        with torch.no_grad():
-            prefill_ms = time_ms(torch, lambda: api.prefill(server.cfg, server.params, ptoks,
-                                                            prompt_len + n_dec),
-                                 runs=5, warmup=1)
-            _, cache = api.prefill(server.cfg, server.params, ptoks, prompt_len + n_dec)
-            tok = ptoks[:, :1]
-            decode_ms = time_ms(torch, lambda: api.decode_step(server.cfg, server.params,
-                                                               dict(cache), tok),
-                                runs=10, warmup=2)
-        print(f"[5] {arch} prefill_ms_per_batch {prefill_ms:.3f} (B={per_node}, "
-              f"S={prompt_len}) decode_ms_per_token {decode_ms:.3f} (B={per_node}) "
-              f"generated_tokens_per_s {rep['tokens_per_second']:.2f} "
-              f"wall_seconds {rep['wall_seconds']:.3f} peak_mem_bytes {peak}")
-        launches_by_path[arch] = launches
-
-        # ---- 6. where the time goes (this model) ---------------------------
-        steps = (("prefill", lambda: api.prefill(server.cfg, server.params, ptoks,
-                                                 prompt_len + n_dec)),
-                 ("decode", lambda: api.decode_step(server.cfg, server.params,
-                                                    dict(cache), tok)))
-        for label, step in steps:
-            busy_ms, wall_ms, top = profile_step(torch, step)
-            print(f"[6] {arch} {label} (B={per_node}) under the profiler: wall {wall_ms:.3f} "
-                  f"ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of wall); "
-                  f"top: {top}")
-
-    serve("llama3.2-3b", 1024)
-    torch.cuda.empty_cache()
-    serve("hymba-1.5b", 2048)
-    torch.cuda.empty_cache()
-    serve("mamba2-130m", 2048)
-    torch.cuda.empty_cache()
-
-    # ---- 7. the Legio runtime at full size: the slice's main path --------
+    # ---- 7. the Legio runtime at full size: the runtime's main path --------
     rt_launches = runtime_phase(torch, rt_core, rt_mpi, ops, quantize, dev, counters)
 
-    # ---- 8. the resilient trainer: this slice's main path ------------------
+    # ---- 8. the resilient trainer: the trainer's main path ------------------
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1208,10 +1347,15 @@ def main(argv: list[str]) -> int:
                       f"train:{train_cfgs[1].name}": train["mamba"]["launches"]}
     print(json.dumps({"train": train}, default=str))
 
+    # ---- 9. the fault zoo: the chaos matrix on the card --------------------
+    chaos = chaos_phase(rt_core, dev)
+    print(json.dumps({"chaos": chaos}))
+
     def entry(name, replaces, shapes):
-        """One kernel's record at the slice's main path (hymba-1.5b): its shape,
-        its launches; every measured shape under ``shapes`` and every serve
-        run's launches under ``launches_by_path``, the train runs' (0) too."""
+        """One kernel's record at the serve path (hymba-1.5b, continuous): its
+        shape, its launches; every measured shape under ``shapes`` and every
+        serve run's launches under ``launches_by_path``, the train runs' (0)
+        too."""
         by_path = {arch: launches[name] for arch, launches in launches_by_path.items()}
         by_path.update({path: launches[name] for path, launches in train_launches.items()})
         main = shapes[-1] if name == "flash_attention" else shapes[0]

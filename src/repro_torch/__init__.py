@@ -11,14 +11,17 @@ what it needs from there it keeps as its own copy. It holds:
   * ``kernels``  — the hand-written CUDA kernels for sm_90a (flash
     attention, the SSD scan, the int8 absmax/quantize pair), built with
     ``nvcc`` at first use, each beside its plain PyTorch version;
-  * ``serve`` / ``launch.serve`` — the request queue and the model-backed
-    server (prefill + greedy decode);
+  * ``serve`` / ``launch.serve`` — the serving subsystem (router,
+    micro-batcher, the continuous-batching ``ServeEngine`` with requeue,
+    dedup, decode-state migration and admission control, traffic and
+    metrics) and the model-backed server (prefill + greedy decode) under it;
   * ``core`` / ``mpi`` / ``dist`` / ``checkpoint`` / ``optim`` / ``data`` —
     the Legio runtime: the control plane (topology, detection, agreement,
     the fault pipeline, recovery strategies), the §V hierarchical
     collectives over a data plane that keeps payloads on the card, the
     ``Session``/``Comm`` facade, peer replicas and the gradient
-    compressors of the cross-legion hop.
+    compressors of the cross-legion hop, the resilient trainer, and the
+    fault zoo (``core.faultmodel``, ``core.chaos``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a visible GPU they raise rather than fall back.

@@ -13,13 +13,14 @@ Layering (paper section -> module):
   §IV executor       transparent orchestration draining the pipeline
   §VII cr            per-legion checkpoint/restart (restart-only-failed)
   —   trainer        resilient data-parallel training
+  —   faultmodel     seeded correlated-failure campaigns (rack, partition, …)
+  —   chaos          ChaosHarness: campaigns against train/serve, invariants
 
 The control plane is numpy and host Python, carried over from the JAX
 package; payloads ride the data plane (``repro_torch.dist.dataplane``),
 device tensors on the torch plane. Applications program against
 :mod:`repro_torch.mpi` (Session/Comm); everything here is the machinery
-behind it. The chaos harness, the fault-model zoo and the mesh manager come
-with later slices.
+behind it. The mesh manager comes with the multi-card slice.
 """
 from repro_torch.core.agreement import agree_fault, agreement_rounds
 from repro_torch.core.batch import (
@@ -30,6 +31,12 @@ from repro_torch.core.batch import (
     restore_rank,
     substitute_assign,
     validate_plan,
+)
+from repro_torch.core.chaos import (
+    ChaosHarness,
+    ChaosReport,
+    InvariantCheck,
+    check_topology_coherence,
 )
 from repro_torch.core.collectives import (
     CollectiveResult,
@@ -51,6 +58,7 @@ from repro_torch.core.executor import (
     StepReport,
     VirtualCluster,
 )
+from repro_torch.core.faultmodel import ChaosEvent, FaultCampaign, FaultModel
 from repro_torch.core.hierarchy import (
     Legion,
     LegionTopology,
@@ -111,10 +119,12 @@ from repro_torch.core.types import (
 )
 
 __all__ = [
-    "AdaptiveDecision", "BatchPlan", "ChaosAction", "CollectiveResult",
-    "CostModelStrategy", "FailureEvent", "FailureKind", "FaultEvent",
-    "FaultInjector", "FaultPipeline", "FaultSource", "HeartbeatDetector",
-    "HierarchicalCollectives", "Legion", "LegionCheckpointer", "LegionTopology",
+    "AdaptiveDecision", "BatchPlan", "ChaosAction", "ChaosEvent",
+    "ChaosHarness", "ChaosReport", "CollectiveResult",
+    "CostModelStrategy", "FailureEvent", "FailureKind", "FaultCampaign",
+    "FaultEvent", "FaultInjector", "FaultModel", "FaultPipeline",
+    "FaultSource", "HeartbeatDetector", "HierarchicalCollectives",
+    "InvariantCheck", "Legion", "LegionCheckpointer", "LegionTopology",
     "LegioExecutor",
     "LegioPolicy", "LevelGroup", "LinkModel", "NodeState",
     "NonblockingSubstituteStrategy", "OpStatus", "PendingSubstitution",
@@ -126,6 +136,7 @@ __all__ = [
     "SubstituteEngine", "SubstituteStrategy", "TopologyTornError",
     "TopologyView", "TrainerReport", "UnfilledSlot", "VirtualCluster", "agree_fault",
     "agreement_rounds", "agreement_time", "available_strategies",
+    "check_topology_coherence",
     "eq3_s_of_k", "eq4_s_of_k", "failures_by_legion", "flat_collective_time",
     "gradient_scale", "initial_assignment", "make_strategy", "make_topology",
     "make_train_step",

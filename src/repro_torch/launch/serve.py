@@ -1,25 +1,27 @@
-"""Batched serving — model inference on the card, request by request.
+"""Resilient batched-serving driver — model inference over ``repro_torch.serve``.
 
-Every node owns a slice of the request stream and serves it with prefill +
-greedy decode; the only collective is the result gather. This module
-supplies the model-backed work function (``ResilientServer._work_fn`` /
-``_work_batch``, with the JAX package's contract) and the CLI. Prefill goes
-through the hand-written kernels: flash attention for the dense and hybrid
-families (windowed for hybrid), the SSD scan for the hybrid and ssm ones.
+The paper's target class — embarrassingly parallel work with no inter-worker
+interaction until the final reduce — is exactly batched inference: every node
+owns a slice of the request stream (prefill + decode), and the only
+collective is the result gather. The serving subsystem (``repro_torch.serve``)
+owns routing, micro-batching, and fault recovery; this module supplies the
+model-backed work function (prefill + greedy decode on the card) and the CLI.
 
-In this slice ``run(n)`` hands requests out in lock-step rounds: each of
-``nodes`` nodes takes up to ``batch_per_node`` requests per round. The
-next slice replaces that loop with the port's ``ServeEngine`` over
-``Session``, and with it come fault injection and recovery (``--fail``,
-``--recovery``), which this CLI refuses until then.
+A fault mid-batch no longer loses the in-flight requests and no longer
+blocks serving: the ServeEngine re-enqueues them through the FaultPipeline
+listener (at-least-once, deduped to exactly-once) while healthy legions
+keep dispatching. Prefill goes through the hand-written kernels: flash
+attention for the dense and hybrid families (windowed for hybrid), the SSD
+scan for the hybrid and ssm ones.
 
-Prompts come from a ``torch.Generator`` seeded 1234 with column 0 set to
-``rid % vocab``; the JAX package draws them from ``PRNGKey(1234)``, so the
-two packages serve different prompts and hence different tokens.
+Prompts are the JAX package's: ``randint(PRNGKey(1234), (B, prompt_len), 0,
+vocab)`` drawn through :mod:`repro_torch.data.threefry` (byte-equal to
+``jax.random.randint``), with column 0 set to ``rid % vocab``.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --full
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --full
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+      --requests 64 --nodes 8 --decode-tokens 8 --fail 2:3 \\
+      --recovery nonblocking
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --fail 0:1
 """
 from __future__ import annotations
 
@@ -32,12 +34,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import FaultInjector, LegioPolicy
+from repro_torch.data import threefry
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.serve import LegionQueue, Request
-
-_NEXT_SLICE = ("fault injection and recovery come with the next slice of the "
-               "port (ServeEngine over Session); this server has no control plane yet")
+from repro_torch.mpi import Session
+from repro_torch.serve import RECOVERY_PRESETS, Request, ServeEngine, recovery_preset
 
 
 @torch.no_grad()
@@ -58,28 +60,48 @@ def greedy_generate(cfg: ModelConfig, params, tokens: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
+def prompt_tokens(request_ids: list[int], prompt_len: int, vocab_size: int) -> np.ndarray:
+    """The JAX package's serve prompts as int32: ``randint(PRNGKey(1234),
+    (B, prompt_len), 0, vocab)`` with the request id folded into column 0.
+    A row depends on the request's position in the batch, not its id alone."""
+    tokens = threefry.randint(threefry.prng_key(1234),
+                              (len(request_ids), prompt_len), 0, vocab_size)
+    tokens[:, 0] = np.asarray(request_ids, np.int32) % vocab_size
+    return tokens
+
+
 class ResilientServer:
-    """Model-backed serving: prefill + greedy decode per micro-batch.
+    """Model-backed serving: prefill + greedy decode per micro-batch, fault
+    recovery delegated to :class:`repro_torch.serve.ServeEngine` over the
+    ``repro_torch.mpi`` session facade — this driver contains zero fault code.
 
     The model runs with ``use_pallas=True``: prefill attention and the SSD
     scan take the hand-written kernels on the card (their plain versions on
     the CPU).
     """
 
-    def __init__(self, cfg: ModelConfig, *, nodes: int = 8, prompt_len: int = 32,
+    def __init__(self, cfg: ModelConfig, session: Session, *, prompt_len: int = 32,
                  decode_tokens: int = 8, batch_per_node: int = 4,
-                 device: str | torch.device = "cuda"):
-        if nodes < 1 or batch_per_node < 1 or prompt_len < 1 or decode_tokens < 1:
-            raise ValueError("nodes, batch_per_node, prompt_len and decode_tokens must be >= 1")
+                 requeue: bool = True, window: int | None = None,
+                 continuous: bool = True, device: str | torch.device = "cuda"):
+        if batch_per_node < 1 or prompt_len < 1 or decode_tokens < 1:
+            raise ValueError("batch_per_node, prompt_len and decode_tokens must be >= 1")
         self.device = resolve_device(device)
         self.cfg = cfg.replace(use_pallas=True)
-        self.nodes = nodes
         self.prompt_len = prompt_len
         self.decode_tokens = decode_tokens
-        self.batch_per_node = batch_per_node
         gen = torch.Generator(device=self.device).manual_seed(0)
         self.params = api.init_params(self.cfg, gen, self.device)
-        self.completed: dict[int, np.ndarray] = {}
+        # first calls warm cuBLAS and the allocator; that wall-clock noise
+        # must not soft-fail healthy nodes as stragglers
+        self.engine = ServeEngine(session, self._work_fn,
+                                  microbatch=batch_per_node, requeue=requeue,
+                                  window=window, continuous=continuous,
+                                  observe_stragglers=False)
+
+    @property
+    def completed(self) -> dict[int, np.ndarray]:
+        return self.engine.completed
 
     def _work_fn(self, node: int, batch: list[Request],
                  step: int) -> dict[int, np.ndarray]:
@@ -88,12 +110,9 @@ class ResilientServer:
         return {rid: row for rid, row in zip(rids, result)}
 
     def prompts(self, request_ids: list[int]) -> torch.Tensor:
-        """Deterministic per-request prompts (request id folds into column 0)."""
-        gen = torch.Generator(device="cpu").manual_seed(1234)
-        tokens = torch.randint(0, self.cfg.vocab_size,
-                               (len(request_ids), self.prompt_len), generator=gen)
-        tokens[:, 0] = torch.tensor(request_ids) % self.cfg.vocab_size
-        return tokens.to(self.device)
+        """:func:`prompt_tokens` as an int64 tensor on the server's device."""
+        tokens = prompt_tokens(request_ids, self.prompt_len, self.cfg.vocab_size)
+        return torch.from_numpy(tokens.astype(np.int64)).to(self.device)
 
     def _work_batch(self, request_ids: list[int]) -> np.ndarray:
         """Prefill + greedy-decode a batch of requests; returns token matrix."""
@@ -102,32 +121,28 @@ class ResilientServer:
         return out.cpu().numpy()
 
     def run(self, n_requests: int) -> dict:
-        """Serve requests ``0..n_requests-1`` in lock-step rounds."""
-        queue = LegionQueue(legion=0)
-        for rid in range(n_requests):
-            queue.push(Request(rid=rid))
+        self.engine.submit(n_requests)
         t0 = time.perf_counter()
-        rounds = batches = 0
-        while len(queue):
-            for node in range(self.nodes):
-                batch = queue.pop_batch(self.batch_per_node)
-                if not batch:
-                    break
-                for req in batch:
-                    req.attempts += 1
-                self.completed.update(self._work_fn(node, batch, rounds))
-                batches += 1
-            rounds += 1
+        rep = self.engine.serve()
         wall = time.perf_counter() - t0
-        generated = len(self.completed) * self.decode_tokens
+        m = rep.metrics_summary
         return {
-            "completed": len(self.completed),
-            "unserved": len(queue),
-            "rounds": rounds,
-            "batches": batches,
+            "completed": rep.completed,
+            "abandoned": m["abandoned"],
+            "shed": m["shed"],
+            "unserved": self.engine.pending,
+            "rounds": rep.rounds,
+            "requeues": m["requeues"],
+            "migrations": m["migrations"],
+            "p50_latency_rounds": m["p50_latency_rounds"],
+            "p99_latency_rounds": m["p99_latency_rounds"],
+            "p99_latency_sim": m["p99_latency_sim"],
+            "slo_attainment": m["slo_attainment"],
+            "starved_rounds": m["starved_rounds"],
             "wall_seconds": wall,
-            "throughput_rps": len(self.completed) / wall if wall > 0 else 0.0,
-            "tokens_per_second": generated / wall if wall > 0 else 0.0,
+            "survivors": rep.survivors,
+            "repairs": rep.repairs,
+            "throughput_rps": rep.completed / wall if wall > 0 else 0.0,
         }
 
 
@@ -141,27 +156,56 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode-tokens", type=int, default=8)
     ap.add_argument("--batch-per-node", type=int, default=4)
+    ap.add_argument("--fail", action="append", default=[],
+                    help="round:node fault injection (repeatable)")
+    ap.add_argument("--recovery", choices=sorted(RECOVERY_PRESETS),
+                    default="shrink", help="recovery strategy for faults")
+    ap.add_argument("--no-requeue", action="store_true",
+                    help="DROP failed nodes' requests instead of re-queueing")
+    ap.add_argument("--window", type=int, default=None,
+                    help="in-flight micro-batches per node (continuous "
+                         "batching window; default policy.serve_window)")
+    ap.add_argument("--lockstep", action="store_true",
+                    help="use the lock-step barrier baseline instead of "
+                         "continuous batching")
+    ap.add_argument("--slo", type=float, default=0.0,
+                    help="per-request SLO deadline in simulated seconds "
+                         "(0 = no deadlines)")
+    ap.add_argument("--admission", choices=("none", "shed", "park"),
+                    default="none",
+                    help="SLO-feasibility admission control at submit")
+    ap.add_argument("--data-plane", choices=["sim", "torch", "auto"], default="torch",
+                    help="what moves collective payloads: the numpy simulator, torch "
+                         "tensors on --device, or auto (torch when >1 card is visible)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no GPU and no --device cpu is an error")
-    ap.add_argument("--fail", action="append", default=[],
-                    help="not in this slice: " + _NEXT_SLICE)
-    ap.add_argument("--recovery", default=None,
-                    help="not in this slice: " + _NEXT_SLICE)
     args = ap.parse_args(argv)
-    if args.fail or args.recovery is not None:
-        ap.error(f"--fail/--recovery: {_NEXT_SLICE}")
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    pairs = []
+    for s in args.fail:
+        step, node = s.split(":")
+        pairs.append((int(step), int(node)))
+    # batch size flows through the ResilientServer constructor (the engine's
+    # explicit microbatch override); the policy only carries recovery setup
+    policy = LegioPolicy(**recovery_preset(args.recovery),
+                         serve_slo_seconds=args.slo,
+                         serve_admission=args.admission,
+                         data_plane=args.data_plane)
+    session = Session(args.nodes, policy=policy, injector=FaultInjector.at(pairs),
+                      device=args.device)
     server = ResilientServer(
-        cfg, nodes=args.nodes, prompt_len=args.prompt_len,
+        cfg, session, prompt_len=args.prompt_len,
         decode_tokens=args.decode_tokens, batch_per_node=args.batch_per_node,
-        device=args.device)
-    print(f"[serve] arch={cfg.name} nodes={args.nodes} requests={args.requests} "
-          f"device={server.device}")
+        requeue=not args.no_requeue, window=args.window,
+        continuous=not args.lockstep, device=args.device)
+    print(f"[serve] arch={cfg.name} nodes={args.nodes} "
+          f"requests={args.requests} recovery={args.recovery} "
+          f"mode={'lockstep' if args.lockstep else 'continuous'} device={server.device}")
     rep = server.run(args.requests)
     for k, v in rep.items():
-        print(f"  {k}: {v}")
-    ok = rep["completed"] == args.requests
+        print(f"  {k}: {v if not isinstance(v, float) else round(v, 3)}")
+    ok = rep["completed"] + rep["abandoned"] + rep["shed"] == args.requests
     print(f"[serve] {'OK' if ok else 'INCOMPLETE'}")
     return 0 if ok else 1
 

@@ -4,6 +4,7 @@ from repro_torch.models.api import (
     init_cache,
     init_params,
     prefill,
+    train_loss,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "init_cache",
     "init_params",
     "prefill",
+    "train_loss",
 ]

@@ -24,6 +24,7 @@ from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
+from repro_torch.mpi import Session  # noqa: E402
 
 ARCHS = ["mamba2-130m", "hymba-1.5b"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -237,9 +238,9 @@ def test_server_routes_prefill_through_the_kernels(arch, monkeypatch):
 
         monkeypatch.setattr(ops, name, counted)
     cfg = get_smoke_config(arch)
-    server = serve.ResilientServer(cfg, nodes=1, prompt_len=20, decode_tokens=2,
-                                   batch_per_node=2, device="cpu")
+    server = serve.ResilientServer(cfg, Session(1, device="cpu"), prompt_len=20,
+                                   decode_tokens=2, batch_per_node=2, device="cpu")
     rep = server.run(2)
-    assert rep["completed"] == 2 and rep["batches"] == 1
+    assert rep["completed"] == 2 and rep["rounds"] == 1
     assert calls["ssd_scan"] == cfg.n_layers
     assert calls["flash_attention"] == (cfg.n_layers if arch == "hymba-1.5b" else 0)

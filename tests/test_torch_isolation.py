@@ -62,7 +62,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core, repro_torch.mpi, repro_torch.dist.dataplane, "
             "repro_torch.checkpoint, repro_torch.optim, repro_torch.data, "
             "repro_torch.launch.train, repro_torch.core.trainer, "
-            "repro_torch.checkpoint.store, repro_torch.data.threefry\n"
+            "repro_torch.checkpoint.store, repro_torch.data.threefry, "
+            "repro_torch.serve.engine, repro_torch.core.chaos\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
