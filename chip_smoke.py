@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 for flash and SSD, then stop
     python3 chip_smoke.py --train-only     # phases 1 and 8, then stop
     python3 chip_smoke.py --serve-only     # phases 1-2, 5-6 and 9, then stop
+    python3 chip_smoke.py --families-only  # phases 1-2, 3's new flash shapes, 10
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
@@ -24,9 +25,14 @@ never JAX or the JAX package, and runs, in order:
        softcap, ragged cross attention), each naming the kernel the
        head-dim rule picks; at llama3.2-3b's serving shape (B=4, S=1024,
        H=24, K=8, hd=128, causal) and at hymba-1.5b's (B=4, S=2048, H=25,
-       K=5, hd=64, causal, window 1024), both bf16, where it also times the
-       kernel, the plain version and one ``scaled_dot_product_attention``
-       call;
+       K=5, hd=64, causal, window 1024), and at phase 10's: mixtral-8x22b
+       (H=48, K=8, hd=128, window 4096, which never clips), grok-1-314b
+       (softcap 30), chameleon-34b (H=64, K=8), all B=4, S=1024, causal,
+       and whisper-tiny's encoder (B=4, S=1500, H=K=6, hd=64, non-causal,
+       a ragged last tile) and cross-attention (Sq=64, Sk=1500), all bf16,
+       where it also times the kernel, the plain version and one
+       ``scaled_dot_product_attention`` call (none for the softcap, which
+       SDPA lacks);
      - the SSD scan over the JAX package's kernel-test sweep and a case with
        P and N off the 16-byte grid in f32 (tol 2e-4) and bf16 (tol 3e-2)
        with h0, S = 40 at chunk 16 against the
@@ -99,17 +105,40 @@ never JAX or the JAX package, and runs, in order:
        package's does); per-step loss, wall ms and tokens/s, the peak
        memory, and one fault-free step under the profiler;
      - full-width mamba2-130m for 3 fault-free steps the same way;
+     - the knobs: llama3.2-3b cut to 4 layers at full width in bf16 (B=2,
+       S=1024), ``remat="dots"`` and ``scan_block=2`` against
+       ``remat="full"`` (loss within 1e-5, gradient norm within 1e-4
+       relative), each one's forward + backward ms and peak memory, and
+       the ops the dots policy keeps on this torch (``aten.mm`` only, 7 a
+       layer);
   9. the fault zoo: ``ChaosHarness(seed=0).run_matrix(64)`` with every
      cluster's torch data plane on the card; all 50 (scenario x recovery
-     x workload) reports must pass their invariants.
+     x workload) reports must pass their invariants;
+ 10. the other families (the earlier phases' tensors freed first):
+     - the flash kernel against the plain path inside the models:
+       mixtral-8x22b and grok-1-314b cut to 2 layers at full width in f32
+       (TF32 off; logits within 2 x 2e-5, the plain run replaying the
+       kernel run's expert choices), chameleon-34b (2 layers) and
+       whisper-tiny in bf16 with phase 4's RMS-ratio check;
+     - mixtral-8x22b (4 of 56 layers), grok-1-314b (2 of 64) and
+       chameleon-34b (4 of 48) at full width through the engine as phase 5
+       serves them, continuous only: every request once, SERVE_PINNED,
+       flash 4 x n_layers a run; the timings of phase 6; the MoE layers'
+       dropped fraction at prefill; chameleon's prefill on random patch
+       embeddings (B=4, S=1024) and 16 decode steps;
+     - whisper-tiny at full width and depth: ``api.prefill`` of random
+       frames (B=4, 1500 x 384) and a 64-token prompt (12 flash launches:
+       4 encoder, 4 decoder self- and 4 cross-attention), then 16 greedy
+       decode steps (none).
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
 kernels' JSON record (each kernel's time, bound and share of the bound,
 its launches on every path: each model's continuous serve run under its
-name, the lock-step run under "<name>/lockstep", the train runs' too) and
-``{"ok": true, "device": {...}}``; ``--kernels-only``, ``--train-only``
-and ``--serve-only`` print neither of the last two.
+name, the lock-step run under "<name>/lockstep", the train runs', phase
+10's runs under their names) and ``{"ok": true, "device": {...}}``;
+``--kernels-only``, ``--train-only``, ``--serve-only`` and
+``--families-only`` print neither of the last two.
 """
 from __future__ import annotations
 
@@ -291,6 +320,46 @@ def to_float(tree):
     if isinstance(tree, dict):
         return {k: to_float(v) for k, v in tree.items()}
     return tree.float()
+
+
+def stub_embeds(torch, cfg, batch, seq, dev):
+    """Random frame (enc-dec: encoder_seq_len of them) or patch embeddings,
+    (batch, n, d_model) fp32 on the card: the stub frontends' input."""
+    n = cfg.encoder_seq_len if cfg.is_encoder_decoder else seq
+    return torch.randn((batch, n, cfg.d_model), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+
+
+def model_check(torch, api, cfg2, batch, seq, dev, *, embeds=False, tag=4):
+    """Phases 4 and 10: bf16 prefill logits with ``use_pallas`` on and off,
+    each held against the same weights run in fp32 (RMS, MODEL_RMS_RATIO);
+    ``embeds`` feeds the stub frontend random embeddings."""
+    params = api.init_params(cfg2, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg2.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    kw = {"embeds": stub_embeds(torch, cfg2, batch, seq, dev)} if embeds else {}
+    cfg32 = cfg2.replace(dtype="float32", param_dtype="float32")
+    with torch.no_grad():
+        lk, _ = api.prefill(cfg2.replace(use_pallas=True), params, tokens, seq + 16, **kw)
+        lp, _ = api.prefill(cfg2.replace(use_pallas=False), params, tokens, seq + 16, **kw)
+        lf, _ = api.prefill(cfg32, to_float(params), tokens, seq + 16, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lk).all() and lk.shape == (batch, 1, cfg2.vocab_size)):
+        raise AssertionError(f"{cfg2.name}: prefill logits are not finite or misshapen")
+    rms_kernel = (lk - lf).square().mean().sqrt().item()
+    rms_plain = (lp - lf).square().mean().sqrt().item()
+    what = "embeds" if embeds else "tokens"
+    print(f"[{tag}] {cfg2.name} d={cfg2.d_model} {cfg2.n_layers} layers prefill B={batch} "
+          f"S={seq} ({what}): logits std {lf.std().item():.3f}; vs the fp32 model: bf16 "
+          f"kernels rms {rms_kernel:.3e} max {(lk - lf).abs().max().item():.3e}, bf16 plain rms "
+          f"{rms_plain:.3e} max {(lp - lf).abs().max().item():.3e}; rms ratio "
+          f"{rms_kernel / rms_plain:.3f} (limit {MODEL_RMS_RATIO})")
+    if rms_kernel > MODEL_RMS_RATIO * rms_plain:
+        raise AssertionError(f"{cfg2.name}: logits through the kernels are further from "
+                             "fp32 than rounding explains")
+    del params
+    torch.cuda.empty_cache()
+    return rms_kernel / rms_plain
 
 
 # ---- the int8 compression hop's kernels (phase 3) and the runtime (phase 7)
@@ -633,7 +702,7 @@ def check_serve_run(cfg, mode, rep, launches, calls, completed):
     for rid, row in completed.items():
         if row.shape != (SERVE_DECODE,) or not ((0 <= row) & (row < cfg.vocab_size)).all():
             raise AssertionError(f"{label} request {rid}: bad tokens {row}")
-    expect = {"flash_attention": cfg.family in ("dense", "hybrid"),
+    expect = {"flash_attention": cfg.family in ("dense", "moe", "vlm", "hybrid"),
               "ssd_scan": cfg.family in ("hybrid", "ssm"),
               "absmax": False, "quantize_int8": False}
     for name, used in expect.items():
@@ -650,15 +719,18 @@ def round_lines(reports) -> list[str]:
             f"wall_seconds {r.wall_seconds:.3f}" for r in reports]
 
 
-def serve_phase(torch, P, PM, api, serve_mod, models, dev, counters) -> dict:
-    """Phases 5-6: each (config, prompt length) of ``models`` served through
-    the engine at full width, continuous and then lock-step, each run held
-    to check_serve_run and the two runs' tokens to each other (their
+def serve_phase(torch, P, PM, api, serve_mod, models, dev, counters, *,
+                modes=("continuous", "lockstep"), tag=5, after=None) -> dict:
+    """Phases 5-6 (and 10): each (config, prompt length) of ``models``
+    served through the engine at full width in each of ``modes``, each run
+    held to check_serve_run and two runs' tokens to each other (their
     dispatch is the same, so their batches are). After the continuous run,
     the steady-state prefill and decode times and one profiled prefill and
-    decode step (phase 6). Each model's servers are freed (``gc.collect``:
-    the engine's pipeline listener closes a cycle that holds the weights)
-    before the next one is built. Returns the launches by path."""
+    decode step (phase 6), then ``after(server, numbers)`` where given, with
+    the run's report, peak memory, tokens/s and those times. Each model's
+    servers are freed (``gc.collect``: the engine's pipeline listener closes
+    a cycle that holds the weights) before the next one is built. Lines are
+    tagged ``[tag]``. Returns the launches by path."""
     launches_by_path = {}
     gc.collect()
     torch.cuda.empty_cache()
@@ -666,23 +738,23 @@ def serve_phase(torch, P, PM, api, serve_mod, models, dev, counters) -> dict:
     for cfg, prompt_len in models:
         arch = cfg.name
         held = torch.cuda.memory_allocated()
-        print(f"[5] {arch}: {held} B allocated before its servers are built "
-              f"(phase 5 began with {base} B)")
+        print(f"[{tag}] {arch}: {held} B allocated before its servers are built "
+              f"(phase {tag} began with {base} B)")
         if held > base + SERVE_HELD_SLACK:
             raise AssertionError(f"{arch}: an earlier model's memory is still held")
         tokens_by_mode = {}
-        for mode in ("continuous", "lockstep"):
+        for mode in modes:
             server, rep, launches, calls, reports, peak = serve_run(
                 torch, P, PM, serve_mod, cfg, prompt_len, dev, counters,
                 continuous=mode == "continuous")
             tok_s = rep["completed"] * SERVE_DECODE / rep["wall_seconds"]
             n_params = api.count_params(server.params)
-            print(f"[5] serve {arch}/{mode} full width ({n_params / 1e9:.3f} B params, "
+            print(f"[{tag}] serve {arch}/{mode} full width ({n_params / 1e9:.3f} B params, "
                   f"{cfg.n_layers} layers, d={cfg.d_model}, vocab {cfg.vocab_size}), "
                   f"{SERVE_NODES} nodes, fault {SERVE_FAULT}: {json.dumps(rep)}")
             for line in round_lines(reports):
-                print(f"[5] {arch}/{mode} {line}")
-            print(f"[5] {arch}/{mode} kernel launches {json.dumps(launches)} over "
+                print(f"[{tag}] {arch}/{mode} {line}")
+            print(f"[{tag}] {arch}/{mode} kernel launches {json.dumps(launches)} over "
                   f"{len(calls)} work_fn calls {calls}; wall_seconds {rep['wall_seconds']:.3f} "
                   f"generated_tokens_per_s {tok_s:.2f} peak_mem_bytes {peak} "
                   f"({peak / 2**30:.2f} GiB)")
@@ -690,20 +762,25 @@ def serve_phase(torch, P, PM, api, serve_mod, models, dev, counters) -> dict:
             tokens_by_mode[mode] = dict(server.completed)
             launches_by_path[arch if mode == "continuous" else f"{arch}/{mode}"] = launches
             if mode == "continuous":
-                serve_timings(torch, api, server, arch, prompt_len)
+                timings = serve_timings(torch, api, server, arch, prompt_len, tag)
+                if after is not None:
+                    after(server, dict(rep, peak_mem_bytes=peak, tokens_per_s=tok_s,
+                                       **timings))
             del server
             gc.collect()
             torch.cuda.empty_cache()
+        if len(modes) < 2:
+            continue
         same = all((tokens_by_mode["continuous"][r] == tokens_by_mode["lockstep"][r]).all()
                    for r in range(SERVE_REQUESTS))
-        print(f"[5] {arch} tokens, continuous vs lock-step (same dispatch): "
+        print(f"[{tag}] {arch} tokens, continuous vs lock-step (same dispatch): "
               f"{'identical' if same else 'DIFFER'}")
         if not same:
             raise AssertionError(f"{arch}: the two modes served different tokens")
     return launches_by_path
 
 
-def serve_timings(torch, api, server, arch, prompt_len):
+def serve_timings(torch, api, server, arch, prompt_len, tag=5):
     """Steady-state prefill and decode times at the serve shape (after the
     counted run), then one step of each under the profiler (phase 6)."""
     ptoks = server.prompts(list(range(SERVE_PER_NODE)))
@@ -716,15 +793,19 @@ def serve_timings(torch, api, server, arch, prompt_len):
         decode_ms = time_ms(torch, lambda: api.decode_step(server.cfg, server.params,
                                                            dict(cache), tok),
                             runs=10, warmup=2)
-    print(f"[5] {arch} prefill_ms_per_batch {prefill_ms:.3f} (B={SERVE_PER_NODE}, "
+    print(f"[{tag}] {arch} prefill_ms_per_batch {prefill_ms:.3f} (B={SERVE_PER_NODE}, "
           f"S={prompt_len}) decode_ms_per_token {decode_ms:.3f} (B={SERVE_PER_NODE})")
     steps = (("prefill", lambda: api.prefill(server.cfg, server.params, ptoks, total)),
              ("decode", lambda: api.decode_step(server.cfg, server.params, dict(cache), tok)))
+    out = {"prefill_ms": prefill_ms, "decode_ms": decode_ms}
     for label, step in steps:
         busy_ms, wall_ms, top = profile_step(torch, step)
-        print(f"[6] {arch} {label} (B={SERVE_PER_NODE}) under the profiler: wall "
+        out[f"{label}_profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+        print(f"[{tag if tag != 5 else 6}] {arch} {label} (B={SERVE_PER_NODE}) under the "
+              f"profiler: wall "
               f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of "
               f"wall); top: {top}")
+    return out
 
 
 def chaos_phase(P, dev) -> dict:
@@ -743,6 +824,225 @@ def chaos_phase(P, dev) -> dict:
     if len(reports) != CHAOS_REPORTS or passed != len(reports):
         raise AssertionError(f"chaos matrix: {passed} of {len(reports)} reports passed")
     return {"reports": len(reports), "passed": passed, "seconds": seconds}
+
+
+# ---- the other families (phase 10) ----------------------------------------
+# (arch, layers kept of the published depth): full width, cut to fit 80 GB
+FAMILY_SERVE = (("mixtral-8x22b", 4), ("grok-1-314b", 2), ("chameleon-34b", 4))
+FAMILY_PROMPT = 1024
+WHISPER_B, WHISPER_PROMPT = 4, 64
+MOE_CHECK_LAYERS, MOE_CHECK_B, MOE_CHECK_S = 2, 1, 1024
+# The MoE models' kernel-vs-plain check runs in f32 with TF32 off, so both
+# paths make the same products but attention's; per logit |kernel - plain|
+# may be at most tol + tol * |plain| with tol = n_layers x flash's own f32
+# tolerance (TOL, 2e-5): each layer's attention output may move by the
+# kernel's tolerance and the residual stream adds the layers' moves. The
+# plain run replays the kernel run's expert choices: a choice is a step
+# function of its logits, and a near-tie flips on any rounding difference.
+
+
+@contextlib.contextmanager
+def routing(moe_mod, torch, *, record=None, replay=None):
+    """Within the block each MoE call's (expert_idx, slot, keep) is appended to
+    ``record``, or taken from ``replay`` with the gates recomputed from this
+    run's own router logits. Yields the count of expert choices each replayed
+    call would have made otherwise."""
+    route = moe_mod._route_group
+    replayed = iter(replay or ())
+    differ = []
+
+    def wrapped(cfg, logits, capacity):
+        out = route(cfg, logits, capacity)
+        if record is not None:
+            record.append(out[:3])
+        if replay is not None:
+            idx, slot, keep = next(replayed)
+            differ.append(int((idx != out[0]).sum()))
+            gates = torch.softmax(logits, dim=-1).gather(-1, idx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+            out = (idx, slot, keep, gates, *out[4:])
+        return out
+
+    moe_mod._route_group = wrapped
+    try:
+        yield differ
+    finally:
+        moe_mod._route_group = route
+
+
+def moe_f32_check(torch, api, moe_mod, cfg2, dev) -> dict:
+    """Phase 10: ``cfg2`` (a MoE model cut in depth) in f32, prefill logits
+    with the flash kernel against without, on the same routing."""
+    cfg32 = cfg2.replace(dtype="float32", param_dtype="float32")
+    params = api.init_params(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg32.vocab_size, (MOE_CHECK_B, MOE_CHECK_S),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    decisions = []
+    with torch.no_grad():
+        with routing(moe_mod, torch, record=decisions):
+            lk, _ = api.prefill(cfg32.replace(use_pallas=True), params, tokens, MOE_CHECK_S + 16)
+        with routing(moe_mod, torch, replay=decisions) as differ:
+            lp, _ = api.prefill(cfg32.replace(use_pallas=False), params, tokens,
+                                MOE_CHECK_S + 16)
+    torch.cuda.synchronize()
+    tol = cfg2.n_layers * TOL["float32"]
+    err = (lk - lp).abs()
+    ok = bool(torch.isfinite(lk).all()) and bool((err <= tol + tol * lp.abs()).all())
+    dropped = [1.0 - keep.float().mean().item() for _, _, keep in decisions]
+    print(f"[10] {cfg2.name} {cfg2.n_layers} layers d={cfg2.d_model} f32 (TF32 off) prefill "
+          f"B={MOE_CHECK_B} S={MOE_CHECK_S}: kernel vs plain logits max_abs_err "
+          f"{err.max().item():.3e} (limit {tol:g} + {tol:g} x |logit|, logits max "
+          f"{lp.abs().max().item():.3f}); expert choices the plain run would have made "
+          f"otherwise, per MoE layer {differ} of {MOE_CHECK_B * MOE_CHECK_S * cfg2.experts_per_token}"
+          f"; dropped fraction per layer {[round(d, 4) for d in dropped]} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{cfg2.name}: f32 logits through the flash kernel differ from "
+                             "the plain path's beyond its tolerance")
+    del params
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err.max().item(), tol=tol, other_choices=differ, dropped=dropped)
+
+
+def launches_of(torch, counters):
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def greedy_decode(torch, api, cfg, params, logits, cache, steps):
+    """``steps`` greedy decode steps from prefill's logits and cache; (B, steps) tokens."""
+    out = []
+    with torch.no_grad():
+        for _ in range(steps):
+            tok = logits[:, -1, :].argmax(dim=-1)[:, None]
+            out.append(tok)
+            logits, cache = api.decode_step(cfg, params, cache, tok)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name}: decode logits are not finite")
+    return torch.cat(out, dim=1)
+
+
+def embeds_run(torch, api, cfg, params, tokens, embeds, dev, counters, label) -> dict:
+    """One ``api.prefill`` with the stub frontend's ``embeds`` and
+    SERVE_DECODE greedy decode steps, counts zeroed before each and read
+    after: the flash kernel once per attention of prefill and never in
+    decode. Then the steady-state times of both."""
+    B, S = tokens.shape
+    total = S + SERVE_DECODE
+    zero(counters)
+    with torch.no_grad():
+        logits, cache = api.prefill(cfg, params, tokens, total, embeds=embeds)
+    prefill_launches = launches_of(torch, counters)
+    zero(counters)
+    toks = greedy_decode(torch, api, cfg, params, logits, cache, SERVE_DECODE)
+    decode_launches = launches_of(torch, counters)
+    attentions = (cfg.n_encoder_layers + 2 * cfg.n_layers) if cfg.is_encoder_decoder \
+        else cfg.n_layers
+    want = {name: attentions if name == "flash_attention" else 0 for name in counters}
+    ok = (prefill_launches == want and not any(decode_launches.values())
+          and logits.shape == (B, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()))
+    with torch.no_grad():
+        prefill_ms = time_ms(torch, lambda: api.prefill(cfg, params, tokens, total,
+                                                        embeds=embeds), runs=5, warmup=1)
+        decode_ms = time_ms(torch, lambda: api.decode_step(cfg, params, dict(cache),
+                                                           tokens[:, :1]), runs=10, warmup=2)
+    print(f"[10] {label} prefill B={B} S={S} embeds {tuple(embeds.shape)}: launches "
+          f"{json.dumps(prefill_launches)}; {SERVE_DECODE} greedy decode steps: launches "
+          f"{json.dumps(decode_launches)}; prefill_ms {prefill_ms:.3f} decode_ms_per_token "
+          f"{decode_ms:.3f} (B={B}); first tokens {toks[0, :8].tolist()} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: expected {want} launches in prefill and none in "
+                             f"decode, finite logits and in-vocab tokens")
+    return dict(prefill_launches=prefill_launches, decode_launches=decode_launches,
+                prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
+def families_phase(torch, P, PM, api, serve_mod, dev, counters) -> dict:
+    """Phase 10, the other families (the earlier phases' tensors freed first):
+    the flash kernel against the plain path inside mixtral and grok (f32, 2
+    layers), chameleon (bf16, 2 layers) and whisper (bf16); mixtral (4 of 56
+    layers), grok (2 of 64) and chameleon (4 of 48) at full width served
+    through the engine as phase 5 serves, continuous, with MoE's dropped
+    fraction at prefill and chameleon's prefill on patch embeddings; and
+    whisper-tiny at full width and depth, prefill on 1500 frames and a
+    64-token prompt and 16 greedy decode steps. Returns the launches by path
+    and the numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"checks": {}, "serve": {}}
+    for arch in ("mixtral-8x22b", "grok-1-314b"):
+        out["checks"][arch] = moe_f32_check(
+            torch, api, moe_mod, get_config(arch).replace(n_layers=MOE_CHECK_LAYERS), dev)
+    out["checks"]["chameleon-34b"] = model_check(
+        torch, api, get_config("chameleon-34b").replace(n_layers=2), 2, FAMILY_PROMPT, dev,
+        tag=10)
+    whisper = get_config("whisper-tiny")
+    out["checks"]["whisper-tiny"] = model_check(torch, api, whisper, 2, WHISPER_PROMPT, dev,
+                                                embeds=True, tag=10)
+
+    launches_by_path = {}
+
+    def after(server, numbers):
+        cfg, arch = server.cfg, server.cfg.name
+        ptoks = server.prompts(list(range(SERVE_PER_NODE)))
+        if cfg.is_moe:
+            with torch.no_grad():
+                _, aux, _ = transformer.forward_hidden(cfg, server.params, ptoks)
+            numbers["prefill_moe"] = {k: v.item() for k, v in aux.items()}
+            print(f"[10] {arch} MoE layers at prefill (B={SERVE_PER_NODE}, S={FAMILY_PROMPT}, "
+                  f"one group of {min(cfg.moe_group_size, ptoks.numel())} tokens, capacity "
+                  f"{moe_mod._capacity(cfg, min(cfg.moe_group_size, ptoks.numel()))} an "
+                  f"expert): dropped_fraction {numbers['prefill_moe']['dropped']:.4f}, "
+                  f"load-balance loss {numbers['prefill_moe']['moe_aux']:.4f}, router z "
+                  f"{numbers['prefill_moe']['router_z']:.4f} (means over layers)")
+        if cfg.frontend == "patch":
+            embeds = stub_embeds(torch, cfg, SERVE_PER_NODE, FAMILY_PROMPT, dev)
+            numbers["embeds"] = run = embeds_run(
+                torch, api, cfg, server.params, ptoks, embeds, dev, counters,
+                f"{arch} (patch embeds)")
+            launches_by_path[f"{arch}/embeds"] = run["prefill_launches"]
+            launches_by_path[f"{arch}/embeds-decode"] = run["decode_launches"]
+        out["serve"][arch] = numbers
+
+    models = [(get_config(arch).replace(n_layers=n), FAMILY_PROMPT) for arch, n in FAMILY_SERVE]
+    for (arch, n), (cfg, _) in zip(FAMILY_SERVE, models):
+        print(f"[10] {arch}: {n} of {get_config(arch).n_layers} layers at full width, "
+              f"{cfg.total_params()} parameters ({cfg.total_params() * 2 / 2**30:.2f} GiB bf16)")
+    launches_by_path.update(serve_phase(torch, P, PM, api, serve_mod, models, dev, counters,
+                                        modes=("continuous",), tag=10, after=after))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = whisper.replace(use_pallas=True)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    frames = stub_embeds(torch, cfg, WHISPER_B, WHISPER_PROMPT, dev)
+    torch.cuda.reset_peak_memory_stats()
+    run = embeds_run(torch, api, cfg, params, tokens, frames, dev, counters,
+                     f"whisper-tiny full width and depth ({api.count_params(params)} params)")
+    run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["serve"]["whisper-tiny"] = run
+    launches_by_path["whisper-tiny"] = run["prefill_launches"]
+    launches_by_path["whisper-tiny/decode"] = run["decode_launches"]
+    del params
+    torch.cuda.empty_cache()
+    out["launches_by_path"] = launches_by_path
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[10] phase 10 took {out['seconds']:.1f} s")
+    return out
 
 
 # ---- training (phase 8) --------------------------------------------------
@@ -822,6 +1122,78 @@ def train_checks(torch, api, cfg, dev) -> dict:
         raise AssertionError("the bf16 training loss or gradient norm is off the fp32 one")
     return dict(loss_rel=loss_rel, grad_rel=grad_rel, bf16_dloss=dloss,
                 bf16_gnorm_rel=abs(gn16 - gn32) / gn32)
+
+
+KNOB_LAYERS, KNOB_B, KNOB_S = 4, 2, 1024
+KNOB_LOSS_RTOL, KNOB_GNORM_RTOL = 1e-5, 1e-4     # tests/test_perf_knobs.py's
+KNOBS = (("remat=full", {}), ("remat=dots", {"remat": "dots"}), ("scan_block=2", {"scan_block": 2}))
+
+
+def knob_checks(torch, api, cfg, dev) -> dict:
+    """Phase 8.3: ``cfg`` (bf16, remat full) cut to KNOB_LAYERS layers at full
+    width (4, so that ``scan_block=2`` makes two blocks), weights drawn on the
+    card: the loss and gradient norm with ``remat="dots"`` and with
+    ``scan_block=2`` against ``remat="full"``, each one's forward + backward
+    ms and peak memory; and what the dots policy saves on this torch."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import transformer
+
+    cut = cfg.replace(n_layers=KNOB_LAYERS)
+    params = api.init_params(cut, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = make_batch(0, 0, 0, batch=KNOB_B, seq_len=KNOB_S, vocab_size=cut.vocab_size,
+                       device=dev)
+    decisions = []
+    policy = transformer._save_dots
+
+    def spy(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            decisions.append((str(op), decision == CheckpointPolicy.MUST_SAVE))
+        return decision
+
+    out = {}
+    for label, kw in KNOBS:
+        c = cut.replace(**kw)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        transformer._save_dots = spy
+        try:
+            loss, grads = loss_and_grads(torch, api, c, params, batch)
+        finally:
+            transformer._save_dots = policy
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        gnorm = global_norm_of(torch, grads)
+        del grads
+        step_ms = time_ms(torch, lambda: loss_and_grads(torch, api, c, params, batch), runs=3,
+                          warmup=1)
+        out[label] = dict(loss=loss.item(), grad_norm=gnorm, step_ms=step_ms, peak_bytes=peak,
+                          peak_above_weights=peak - held)
+    base = out["remat=full"]
+    saved = [op for op, keep in decisions if keep]
+    ok = set(saved) == {"aten.mm.default"} and len(saved) == 7 * KNOB_LAYERS
+    for label, r in out.items():
+        dl = abs(r["loss"] - base["loss"]) / abs(base["loss"])
+        dg = abs(r["grad_norm"] - base["grad_norm"]) / base["grad_norm"]
+        ok &= dl <= KNOB_LOSS_RTOL and dg <= KNOB_GNORM_RTOL
+        print(f"[8] knob {label}: {cut.name} {KNOB_LAYERS} layers d={cut.d_model} bf16, "
+              f"B={KNOB_B} S={KNOB_S}: loss {r['loss']:.6f} (rel {dl:.2e}, limit "
+              f"{KNOB_LOSS_RTOL:g}), grad norm {r['grad_norm']:.6f} (rel {dg:.2e}, limit "
+              f"{KNOB_GNORM_RTOL:g}); forward + backward {r['step_ms']:.3f} ms; peak memory "
+              f"{r['peak_bytes']} B, {r['peak_above_weights']} B above what was allocated "
+              f"before")
+    print(f"[8] remat=dots on torch {torch.__version__}: the policy kept {len(saved)} outputs "
+          f"({sorted(set(saved))}; 7 a layer expected: q, k, v, o and the MLP's three) and "
+          f"recomputed {len(decisions) - len(saved)} ops {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a knob changed the loss or gradient norm, or remat=dots kept "
+                             "other outputs than the matrix products")
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_profile(torch, trainer, vocab: int) -> dict:
@@ -943,6 +1315,7 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
     llama, mamba = cfgs
     checks = train_checks(torch, api, llama, dev)
     torch.cuda.empty_cache()
+    checks["knobs"] = knob_checks(torch, api, llama, dev)
 
     tokens = make_batch(0, 0, 0, batch=1, seq_len=1024, vocab_size=128256)["tokens"]
     digest = hashlib.sha256(tokens.cpu().numpy().tobytes()).hexdigest()
@@ -1021,6 +1394,7 @@ def main(argv: list[str]) -> int:
     kernels_only = "--kernels-only" in argv  # phases 1-3 for flash and SSD, then stop
     train_only = "--train-only" in argv      # phases 1 and 8, then stop
     serve_only = "--serve-only" in argv      # phases 1-2, 5-6 and 9, then stop
+    families_only = "--families-only" in argv  # phases 1-2, 3's family shapes, 10
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1071,7 +1445,7 @@ def main(argv: list[str]) -> int:
         for line in ptxas_summary(log):
             print(f"[2] ptxas {name}: {line}")
     serve_models = [(get_config(arch), prompt_len) for arch, prompt_len in SERVE_MODELS]
-    if serve_only:
+    if serve_only and not families_only:
         launches_by_path = serve_phase(torch, rt_core, rt_mpi, api, serve_mod, serve_models,
                                        dev, counters)
         chaos = chaos_phase(rt_core, dev)
@@ -1144,42 +1518,69 @@ def main(argv: list[str]) -> int:
                                                      q_offset=128)], dim=1)
             check(f"split_q_invariance_hd{hd} ({kernel_for(q.dtype, hd)})", dtype, halves, whole)
 
-    def flash_path(label, B, S, H, K, hd, window):
-        """Check and time the flash kernel at a serving path's shape (bf16, causal)."""
-        q, k, v = qkv(B, S, S, H, K, hd, "bfloat16")
-        kw = dict(causal=True, window=window)
+    def flash_path(label, B, Sq, H, K, hd, window=0, *, Sk=None, causal=True, softcap=0.0):
+        """Check and time the flash kernel at a serving path's shape (bf16),
+        with one ``scaled_dot_product_attention`` call beside it where SDPA
+        computes the same function (it has no softcap)."""
+        Sk = Sq if Sk is None else Sk
+        q, k, v = qkv(B, Sq, Sk, H, K, hd, "bfloat16")
+        kw = dict(causal=causal, window=window, logit_softcap=softcap)
         out = flash_attention_cuda(q, k, v, **kw)
         err = check(f"path_shape_{label}", "bfloat16", out, flash_attention_plain(q, k, v, **kw))
         kernel_ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw), runs=20, reps=20)
         plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw), runs=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        if window:  # the window as a boolean mask (True = attend)
-            ones = torch.ones((S, S), dtype=torch.bool, device=dev)
+        lib = None   # SDPA has no softcap: no library call computes a softcapped score
+        if not softcap and 0 < window < Sk:  # the window as a boolean mask (True = attend)
+            ones = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
             mask = ones.tril() & ~ones.tril(-window)
             lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        elif not softcap:   # a window at least as long as the keys never clips
+            lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+        library_ms = lib_err = None
+        if lib is not None:
+            library_ms = time_ms(torch, lib, runs=20, reps=20)
+            lib_err = (lib().transpose(1, 2).float() - out.float()).abs().max().item()
+        flops = 4 * hd * live_pairs(Sq, Sk, causal, window, 0) * B * H
+        if softcap:   # tanh and two scalings a score, at the fp32 CUDA-core rate
+            op_s = flops / PEAK_BF16_FLOPS + 3 * live_pairs(Sq, Sk, causal, window, 0) * B * H \
+                / PEAK_FP32_FLOPS
         else:
-            lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
-        library_ms = time_ms(torch, lib, runs=20, reps=20)
-        lib_err = (lib().transpose(1, 2).float() - out.float()).abs().max().item()
-        flops = 4 * hd * live_pairs(S, S, True, window, 0) * B * H
+            op_s = flops / PEAK_BF16_FLOPS
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out))
-        bound_ms, bound_by = bound(flops / PEAK_BF16_FLOPS, nbytes)
+        bound_ms, bound_by = bound(op_s, nbytes)
         kernel = kernel_for(q.dtype, hd)
-        print(f"[3] flash path shape {label} B={B} S={S} H={H} K={K} hd={hd} bf16 causal "
-              f"window={window} ({kernel} kernel): kernel_ms {kernel_ms:.4f} plain_ms "
-              f"{plain_ms:.4f} library_ms {library_ms:.4f} (kernel/library "
-              f"{kernel_ms / library_ms:.3f}) bound_ms {bound_ms:.4f} ({bound_by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) share of bound "
-              f"{bound_ms / kernel_ms:.3f} kernel TFLOP/s {flops / kernel_ms / 1e9:.1f} "
-              f"sdpa_vs_kernel_max_abs {lib_err:.3e}")
-        return dict(shape=f"{label}: B={B} S={S} H={H} K={K} hd={hd} bf16 causal window={window}",
-                    kernel=kernel, max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+        shape = (f"{label}: B={B} Sq={Sq} Sk={Sk} H={H} K={K} hd={hd} bf16 "
+                 f"{'causal' if causal else 'non-causal'} window={window} softcap={softcap:g}")
+        lib_text = ("none (SDPA has no softcap)" if lib is None else
+                    f"{library_ms:.4f} (kernel/library {kernel_ms / library_ms:.3f}; "
+                    f"sdpa_vs_kernel_max_abs {lib_err:.3e})")
+        print(f"[3] flash path shape {shape} ({kernel} kernel): kernel_ms {kernel_ms:.4f} "
+              f"plain_ms {plain_ms:.4f} library_ms {lib_text} bound_ms {bound_ms:.4f} "
+              f"({bound_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) share of bound "
+              f"{bound_ms / kernel_ms:.3f} kernel TFLOP/s {flops / kernel_ms / 1e9:.1f}")
+        return dict(shape=shape, kernel=kernel, max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / kernel_ms,
                     library_ms=library_ms)
 
-    flash_shapes = [flash_path("llama3.2-3b", 4, 1024, 24, 8, 128, 0),
-                    flash_path("hymba-1.5b", 4, 2048, 25, 5, 64, 1024)]
+    # the other families' serve shapes (phase 10): mixtral's 4096 window
+    # never clips its 1024-token prompts; whisper's 1500 frames end in a
+    # ragged 128-key tile
+    family_shapes = [
+        flash_path("mixtral-8x22b", 4, 1024, 48, 8, 128, 4096),
+        flash_path("grok-1-314b", 4, 1024, 48, 8, 128, softcap=30.0),
+        flash_path("chameleon-34b", 4, 1024, 64, 8, 128),
+        flash_path("whisper-tiny/encoder", 4, 1500, 6, 6, 64, causal=False),
+        flash_path("whisper-tiny/cross", 4, 64, 6, 6, 64, Sk=1500, causal=False),
+    ]
+    if families_only:
+        families = families_phase(torch, rt_core, rt_mpi, api, serve_mod, dev, counters)
+        print(json.dumps({"families_only": {"flash_attention": family_shapes,
+                                            "families": families}}, default=str))
+        return 0
+    flash_shapes = [flash_path("llama3.2-3b", 4, 1024, 24, 8, 128),
+                    flash_path("hymba-1.5b", 4, 2048, 25, 5, 64, 1024)] + family_shapes
 
     def ssd_inputs(B, S, H, P, G, N, dtype, with_h0=True):
         """The JAX package's kernel-test distribution, drawn on the card."""
@@ -1288,34 +1689,9 @@ def main(argv: list[str]) -> int:
     quant_records = quantize_phase(torch, np, compression, quantize, dev)
 
     # ---- 4. models: kernels vs plain -------------------------------------
-    def model_check(cfg2, batch, seq):
-        params = api.init_params(cfg2, torch.Generator(device=dev).manual_seed(0), dev)
-        tokens = torch.randint(0, cfg2.vocab_size, (batch, seq),
-                               generator=torch.Generator().manual_seed(1)).to(dev)
-        cfg32 = cfg2.replace(dtype="float32", param_dtype="float32")
-        with torch.no_grad():
-            lk, _ = api.prefill(cfg2.replace(use_pallas=True), params, tokens, seq + 16)
-            lp, _ = api.prefill(cfg2.replace(use_pallas=False), params, tokens, seq + 16)
-            lf, _ = api.prefill(cfg32, to_float(params), tokens, seq + 16)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(lk).all() and lk.shape == (batch, 1, cfg2.vocab_size)):
-            raise AssertionError(f"{cfg2.name}: prefill logits are not finite or misshapen")
-        rms_kernel = (lk - lf).square().mean().sqrt().item()
-        rms_plain = (lp - lf).square().mean().sqrt().item()
-        print(f"[4] {cfg2.name} d={cfg2.d_model} {cfg2.n_layers} layers prefill B={batch} "
-              f"S={seq}: logits std {lf.std().item():.3f}; vs the fp32 model: bf16 kernels "
-              f"rms {rms_kernel:.3e} max {(lk - lf).abs().max().item():.3e}, bf16 plain rms "
-              f"{rms_plain:.3e} max {(lp - lf).abs().max().item():.3e}; rms ratio "
-              f"{rms_kernel / rms_plain:.3f} (limit {MODEL_RMS_RATIO})")
-        if rms_kernel > MODEL_RMS_RATIO * rms_plain:
-            raise AssertionError(f"{cfg2.name}: logits through the kernels are further from "
-                                 "fp32 than rounding explains")
-        del params
-        torch.cuda.empty_cache()
-
-    model_check(get_config("llama3.2-3b").replace(n_layers=2), 2, 1024)
-    model_check(get_config("hymba-1.5b").replace(n_layers=2), 2, 2048)
-    model_check(get_config("mamba2-130m"), 2, 2048)
+    model_check(torch, api, get_config("llama3.2-3b").replace(n_layers=2), 2, 1024, dev)
+    model_check(torch, api, get_config("hymba-1.5b").replace(n_layers=2), 2, 2048, dev)
+    model_check(torch, api, get_config("mamba2-130m"), 2, 2048, dev)
 
     for arch in ("llama3.2-3b", "hymba-1.5b", "mamba2-130m"):
         smoke = get_smoke_config(arch).replace(dtype="float32", param_dtype="float32")
@@ -1351,6 +1727,11 @@ def main(argv: list[str]) -> int:
     chaos = chaos_phase(rt_core, dev)
     print(json.dumps({"chaos": chaos}))
 
+    # ---- 10. the other families ------------------------------------------
+    families = families_phase(torch, rt_core, rt_mpi, api, serve_mod, dev, counters)
+    launches_by_path.update(families.pop("launches_by_path"))
+    print(json.dumps({"families": families}, default=str))
+
     def entry(name, replaces, shapes):
         """One kernel's record at the serve path (hymba-1.5b, continuous): its
         shape, its launches; every measured shape under ``shapes`` and every
@@ -1358,7 +1739,7 @@ def main(argv: list[str]) -> int:
         too."""
         by_path = {arch: launches[name] for arch, launches in launches_by_path.items()}
         by_path.update({path: launches[name] for path, launches in train_launches.items()})
-        main = shapes[-1] if name == "flash_attention" else shapes[0]
+        main = next(x for x in shapes if x["shape"].startswith("hymba-1.5b"))
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
                 "launches": by_path["hymba-1.5b"], "launches_by_path": by_path,

@@ -11,8 +11,11 @@ A fault mid-batch no longer loses the in-flight requests and no longer
 blocks serving: the ServeEngine re-enqueues them through the FaultPipeline
 listener (at-least-once, deduped to exactly-once) while healthy legions
 keep dispatching. Prefill goes through the hand-written kernels: flash
-attention for the dense and hybrid families (windowed for hybrid), the SSD
-scan for the hybrid and ssm ones.
+attention for the dense, moe, vlm and hybrid families (windowed for hybrid
+and mixtral), the SSD scan for the hybrid and ssm ones. The vlm family is
+served on tokens. The encoder-decoder is not served here, as in the JAX
+package: its prefill needs the audio frames (``embeds``), which the work
+function does not take; it runs through ``api.prefill``/``api.decode_step``.
 
 Prompts are the JAX package's: ``randint(PRNGKey(1234), (B, prompt_len), 0,
 vocab)`` drawn through :mod:`repro_torch.data.threefry` (byte-equal to

@@ -7,13 +7,15 @@ the CPU), and the rest run where their inputs live:
   init_params(cfg, generator, device)          -> params pytree
   train_loss(cfg, params, batch)               -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)      -> decode cache
-  prefill(cfg, params, tokens, max_len)        -> (last logits, cache)
+  prefill(cfg, params, tokens, max_len, ...)   -> (last logits, cache)
   decode_step(cfg, params, cache, tokens)      -> (logits, cache)
   count_params(params)                         -> int
 
-Families: dense and hybrid go to ``transformer``, ssm to ``mamba``; MoE,
-VLM and encoder-decoder raise ``NotImplementedError`` naming their later
-slice.
+Families: dense, moe, vlm and hybrid go to ``transformer``, ssm to
+``mamba``, encdec to ``encdec``. ``prefill`` passes its keywords through:
+``embeds`` (B, S, D), the stub frontends' input, which the encoder-decoder
+needs (its audio frames) and the VLM takes in place of the prompt's
+embeddings.
 """
 from __future__ import annotations
 
@@ -23,16 +25,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba, transformer
+from repro_torch.models import encdec, mamba, transformer
 
 Params = dict[str, Any]
 
+_TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+
 
 def _mod(cfg: ModelConfig):
+    if cfg.family in _TRANSFORMER_FAMILIES:
+        return transformer
     if cfg.family == "ssm":
         return mamba
-    transformer.check_family(cfg)
-    return transformer
+    if cfg.family == "encdec":
+        return encdec
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def param_specs(cfg: ModelConfig) -> Params:
@@ -69,8 +76,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return _mod(cfg).init_cache(cfg, batch, max_len, resolve_device(device))
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int):
-    return _mod(cfg).prefill(cfg, params, tokens, max_len)
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int, **kw):
+    return _mod(cfg).prefill(cfg, params, tokens, max_len, **kw)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict, tokens: torch.Tensor):

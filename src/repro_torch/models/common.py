@@ -8,6 +8,9 @@ a PyTorch habit would be wrong here:
   * RoPE rotates split halves (``[x1, x2] -> [x1 cos - x2 sin, x2 cos + x1 sin]``),
     not interleaved pairs, with angles taken in fp32 from fp32 positions.
 
+``sinusoidal_positions`` (the encoder-decoder's) takes its fp32 angles as the
+reference does and its exp, sin and cos in float64, rounded to fp32.
+
 ``cross_entropy_chunked`` is the training loss: fp32 logits a sequence chunk
 at a time, each chunk checkpointed so no chunk's logits are kept for the
 backward.
@@ -89,6 +92,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Sinusoidal positions (whisper)
+# ----------------------------------------------------------------------------
+
+def sinusoid_inv_freq(d_model: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """(d_model // 2,) fp32 inverse timescales ``exp(-log(1e4) / (half - 1) * i)``.
+
+    The exponent is the reference's fp32 product; the exp is taken in
+    float64 and rounded, since torch's vectorised fp32 transcendentals are
+    not correctly rounded.
+    """
+    half = d_model // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    arg = torch.tensor(-log_timescale, dtype=torch.float32) * torch.arange(
+        half, dtype=torch.float32)
+    return torch.exp(arg.double()).float().to(device)
+
+
+def sinusoid(scaled: torch.Tensor) -> torch.Tensor:
+    """``[sin, cos]`` of fp32 angles along the last dim, each rounded from float64."""
+    s = scaled.double()
+    return torch.cat([torch.sin(s), torch.cos(s)], dim=-1).float()
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device: torch.device | str = "cpu") -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings, (S, D) fp32."""
+    inv = sinusoid_inv_freq(d_model, device)
+    scaled = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return sinusoid(scaled)
 
 
 # ----------------------------------------------------------------------------

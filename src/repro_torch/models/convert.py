@@ -1,12 +1,14 @@
 """Carry the JAX package's parameters across to the port.
 
 ``params_from_reference`` takes the reference's ``init_params`` pytree as
-numpy arrays (nested dicts, ``layers`` stacked ``(L, ...)``) and returns the
-port's pytree, leaf for leaf and bit for bit. The reference's bf16 leaves
-arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects;
-they travel as their raw 16-bit patterns instead, which is exact. Each
-leaf's dtype is checked against its own spec (``api.param_specs``): the
-SSM's ``A_log``, ``dt_bias`` and ``D`` are fp32 whatever ``param_dtype``.
+numpy arrays (nested dicts, ``layers`` stacked ``(L, ...)``; for the
+encoder-decoder ``enc_layers`` and ``dec_layers``) and returns the port's
+pytree, leaf for leaf and bit for bit. The reference's bf16 leaves arrive
+as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects; they
+travel as their raw 16-bit patterns instead, which is exact. Each leaf's
+dtype is checked against its own spec (``api.param_specs``): the SSM's
+``A_log``, ``dt_bias`` and ``D`` and the MoE ``router`` are fp32 whatever
+``param_dtype``.
 """
 from __future__ import annotations
 

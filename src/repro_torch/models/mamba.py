@@ -116,7 +116,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            max_len: int) -> tuple[torch.Tensor, dict]:
+            max_len: int, **_) -> tuple[torch.Tensor, dict]:
     """Run the full prompt, build the decode cache. Returns (last-token logits, cache)."""
     del max_len
     hidden, caches = forward_hidden(cfg, params, tokens, collect_state=True)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and hybrid families.
+"""Decoder-only transformer LM covering the dense / moe / vlm / hybrid families.
 
 Parameters keep the JAX package's pytree: nested dicts of tensors, with every
 leaf under ``params["layers"]`` stacked ``(L, ...)`` and weights laid out
@@ -15,21 +15,39 @@ windowed attention and a Mamba-2 block side by side on the same input,
 cache **in place** and returns the same tensors, where the JAX package
 returns fresh arrays; a caller that needs the old cache clones it first.
 
+A MoE layer (``cfg.n_experts > 0``) runs ``moe.moe_ffn`` in place of the
+MLP; its load-balance and router-z losses and dropped fraction are averaged
+over layers (``forward_hidden``'s aux dict) and ``train_loss`` adds the two
+losses, weighted, as the reference does. The VLM's stub frontend passes
+``embeds`` (B, S, D) in place of tokens to ``forward_hidden``,
+``train_loss`` (``batch["embeds"]``) and ``prefill``.
+
 ``train_loss`` is the reference's: the chunked fp32 cross-entropy over the
-final hidden states, with ``remat="full"`` checkpointing each layer and
-``"none"`` keeping every activation; ``"dots"`` and ``scan_block > 0`` (no
-config uses them) raise. Settings for many devices (``fsdp_gather``,
-``act_shard``) are ignored: on one chip the reference's sharding
-constraints are identity maps. MoE and VLM are not ported yet.
+final hidden states. ``remat`` picks what a layer keeps for the backward:
+``"none"`` everything; ``"full"`` its input only (``torch.utils.checkpoint``,
+the reference's ``jax.checkpoint``); ``"dots"`` the outputs of its matrix
+products with no batch dims, ``aten.mm``/``aten.addmm``, recomputing the
+rest, ``bmm`` included (a selective checkpoint, the reference's
+``dots_with_no_batch_dims_saveable``). ``scan_block = G`` with ``0 < G <
+L`` and ``L % G == 0`` adds an outer checkpoint over each block of G layers
+(unless ``remat="none"``), the reference's two-level layer scan. Settings
+for many devices (``fsdp_gather``, ``act_shard``) are ignored: on one chip
+the reference's sharding constraints are identity maps.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import (
@@ -46,22 +64,8 @@ from repro_torch.models.common import (
 
 Params = dict[str, Any]
 
-_LATER = {
-    "moe": "a later slice (other model families)",
-    "vlm": "a later slice (other model families)",
-    "encdec": "a later slice (other model families)",
-}
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for any family but dense and hybrid."""
-    if cfg.family not in ("dense", "hybrid") or cfg.is_moe:
-        family = "moe" if cfg.is_moe else cfg.family
-        if family not in _LATER:
-            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a transformer family")
-        raise NotImplementedError(
-            f"{cfg.name}: family {family!r} is not ported yet; it comes with "
-            f"{_LATER[family]}")
+# what remat="dots" saves: matrix products with no batch dims
+DOTS_SAVEABLE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 # ----------------------------------------------------------------------------
@@ -70,19 +74,21 @@ def check_family(cfg: ModelConfig) -> None:
 
 def param_specs(cfg: ModelConfig) -> Params:
     """The parameter pytree's leaves as ``(shape, dtype name)`` pairs."""
-    check_family(cfg)
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     dt = cfg.param_dtype
-    mlp = {"w_in": ((L, D, F), dt), "w_out": ((L, F, D), dt)}
-    if cfg.gated_mlp():
-        mlp["w_gate"] = ((L, D, F), dt)
     layers: Params = {
         "attn_norm": ((L, D), dt),
         "mlp_norm": ((L, D), dt),
         "attn": {"wq": ((L, D, cfg.q_dim), dt), "wk": ((L, D, cfg.kv_dim), dt),
                  "wv": ((L, D, cfg.kv_dim), dt), "wo": ((L, cfg.q_dim, D), dt)},
-        "mlp": mlp,
     }
+    if cfg.is_moe:
+        layers["moe"] = moe_mod.moe_param_specs(cfg, L)
+    else:
+        mlp = {"w_in": ((L, D, F), dt), "w_out": ((L, F, D), dt)}
+        if cfg.gated_mlp():
+            mlp["w_gate"] = ((L, D, F), dt)
+        layers["mlp"] = mlp
     if cfg.family == "hybrid":
         layers["ssm"] = ssd_mod.ssm_param_specs(cfg, L)
     specs: Params = {
@@ -101,8 +107,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     Truncated normal at ±3σ with fan-in σ, the ``wo``/``w_out`` output
     scales, N(0, 0.02) embeddings and zero norm gains — the JAX package's
-    distribution, not its bits. Drawn layer by layer, so the fp32 scratch
-    is one layer's matrix at a time.
+    distribution, not its bits. Drawn layer by layer (expert by expert for
+    MoE), so the fp32 scratch is one matrix at a time.
     """
     dtype = torch_dtype(cfg.param_dtype)
     specs = param_specs(cfg)
@@ -119,7 +125,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "attn_norm": torch.zeros(specs["layers"]["attn_norm"][0], dtype=dtype, device=device),
         "mlp_norm": torch.zeros(specs["layers"]["mlp_norm"][0], dtype=dtype, device=device),
     }
-    for group in ("attn", "mlp"):
+    for group in ("attn",) if cfg.is_moe else ("attn", "mlp"):
         layers[group] = {}
         for name, (shape, _) in specs["layers"][group].items():
             w = empty(shape)
@@ -131,6 +137,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "final_norm": torch.zeros(specs["final_norm"][0], dtype=dtype, device=device),
         "layers": layers,
     }
+    if cfg.is_moe:
+        layers["moe"] = moe_mod.init_moe_params(cfg, L, generator, device, dtype)
     if cfg.family == "hybrid":
         layers["ssm"] = ssd_mod.init_ssm_params(cfg, L, generator, device, dtype)
     if not cfg.tie_embeddings:
@@ -168,16 +176,28 @@ def _mlp_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     return mid @ lp["w_out"]
 
 
-def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
+           embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings, or the stub frontend's ``embeds`` (B, S, D)."""
+    x = (params["embed"][tokens] if embeds is None else embeds).to(torch_dtype(cfg.dtype))
     if cfg.scale_embeddings:
         # the scale rounded to the activation dtype first, as the reference
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
     return x
 
 
+def _ffn(cfg: ModelConfig, lp: Params, h2: torch.Tensor):
+    """The MLP or, for MoE, the expert layer. Returns (y, aux (3,) fp32:
+    load-balance loss, router z-loss, dropped fraction; zeros for an MLP)."""
+    if not cfg.is_moe:
+        return _mlp_branch(cfg, lp["mlp"], h2), torch.zeros(3, device=h2.device)
+    B, S, D = h2.shape
+    y, m = moe_mod.moe_ffn(cfg, lp["moe"], h2.reshape(B * S, D))
+    return y.reshape(B, S, D), torch.stack(list(m))
+
+
 def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor):
-    """One block. Returns (x, k, v, ssm cache or None)."""
+    """One block. Returns (x, aux (3,), k, v, ssm cache or None)."""
     hybrid = cfg.family == "hybrid"
     window = cfg.hybrid_attn_window if hybrid else None
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -188,56 +208,94 @@ def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.T
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
-    h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _mlp_branch(cfg, lp["mlp"], h2), k, v, ssm_cache
+    y, aux = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
+    return x + y, aux, k, v, ssm_cache
 
 
-def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   *, collect_kv: bool = False):
-    """tokens: (B,S) integer. Returns (hidden (B,S,D), kv or None).
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVEABLE
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
-    ``kv`` is ``(k, v, ssm)``: k and v stacked ``(L, B, S, K, hd)``, and for
-    the hybrid family the per-layer ``SSMCache`` list (else None). Without
-    ``collect_kv`` and with ``cfg.remat == "full"``, each layer runs under
-    ``torch.utils.checkpoint``: its activations are recomputed in the
-    backward rather than kept, as the reference's ``jax.checkpoint``.
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``: as is ("none"), checkpointed ("full"), or
+    checkpointed keeping the no-batch-dim matrix products ("dots")."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
+                   *, embeds: torch.Tensor | None = None, collect_kv: bool = False):
+    """tokens: (B,S) integer (or ``embeds`` (B,S,D) for stub frontends).
+
+    Returns (hidden (B,S,D), aux dict, kv or None). ``aux`` holds the MoE
+    layers' ``moe_aux``, ``router_z`` and ``dropped``, each a mean over
+    layers (zeros for the other families). ``kv`` is ``(k, v, ssm)``: k and
+    v stacked ``(L, B, S, K, hd)``, and for the hybrid family the
+    per-layer ``SSMCache`` list (else None). Without ``collect_kv`` each
+    layer runs under ``cfg.remat`` and ``cfg.scan_block``'s blocks (module
+    docstring).
     """
-    check_family(cfg)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    remat = cfg.remat == "full" and not collect_kv
-    ks, vs, ssm = [], [], []
-    for lp in layer_params(params["layers"]):
-        if remat:
-            x = checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False)[0]
-            continue
-        x, k, v, ssm_cache = _layer_fwd(cfg, lp, x, positions)
-        if collect_kv:
+    layers = layer_params(params["layers"])
+    auxes, ks, vs, ssm = [], [], [], []
+    L, G = cfg.n_layers, cfg.scan_block
+    if collect_kv:
+        for lp in layers:
+            x, aux, k, v, ssm_cache = _layer_fwd(cfg, lp, x, positions)
+            auxes.append(aux)
             ks.append(k)
             vs.append(v)
             if ssm_cache is not None:
                 ssm.append(ssm_cache)
+    else:
+        layer = _remat(cfg, _layer_fwd)
+
+        def block(x, blk):
+            out = []
+            for lp in blk:
+                x, aux = layer(cfg, lp, x, positions)[:2]
+                out.append(aux)
+            return x, out
+
+        if 0 < G < L and L % G == 0:
+            # two-level layer loop: the outer checkpoint keeps one input per
+            # block of G layers; the (rematted) inner layers are recomputed
+            # block by block in the backward
+            outer = block if cfg.remat == "none" else functools.partial(
+                checkpoint, block, use_reentrant=False)
+            for b in range(0, L, G):
+                x, out = outer(x, layers[b:b + G])
+                auxes.extend(out)
+        else:
+            x, auxes = block(x, layers)
+    aux = torch.stack(auxes).mean(0)
+    aux_losses = {"moe_aux": aux[0], "router_z": aux[1], "dropped": aux[2]}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     kv = (torch.stack(ks), torch.stack(vs), ssm or None) if collect_kv else None
-    return x, kv
+    return x, aux_losses, kv
 
 
 def train_loss(cfg: ModelConfig, params: Params,
                batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
-    """batch: tokens (B,S), labels (B,S). Returns (scalar loss, metrics)."""
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(f"{cfg.name}: remat={cfg.remat!r} is not ported "
-                                  "(no config uses it); use 'full' or 'none'")
-    if cfg.scan_block:
-        raise NotImplementedError(f"{cfg.name}: scan_block={cfg.scan_block} (the two-level "
-                                  "layer scan) is not ported; no config uses it")
-    hidden, _ = forward_hidden(cfg, params, batch["tokens"])
+    """batch: tokens (B,S) or embeds (B,S,D), labels (B,S). Returns (scalar loss, metrics)."""
+    hidden, aux, _ = forward_hidden(cfg, params, batch.get("tokens"),
+                                    embeds=batch.get("embeds"))
     loss, metrics = cross_entropy_chunked(
         hidden, unembed_matrix(cfg, params), batch["labels"],
         chunk=cfg.xent_chunk, z_loss_weight=cfg.z_loss_weight,
         logits_softcap=cfg.logits_softcap,
     )
+    if cfg.is_moe:
+        loss = loss + cfg.moe_aux_loss_weight * aux["moe_aux"] \
+                    + cfg.router_z_loss_weight * aux["router_z"]
+        metrics.update(aux)
     metrics["loss"] = loss
     return loss, metrics
 
@@ -259,7 +317,6 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
-    check_family(cfg)
     C = cache_len(cfg, max_len)
     L = cfg.n_layers
     shape = (L, batch, C, cfg.n_kv_heads, cfg.head_dim)
@@ -274,11 +331,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            max_len: int) -> tuple[torch.Tensor, dict]:
-    """Run the full prompt, build the decode cache. Returns (last-token logits, cache)."""
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int,
+            *, embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """Run the full prompt (``embeds`` in place of the tokens' embeddings
+    when given), build the decode cache. Returns (last-token logits, cache)."""
     B, S = tokens.shape
-    hidden, (k_all, v_all, ssm) = forward_hidden(cfg, params, tokens, collect_kv=True)
+    hidden, _, (k_all, v_all, ssm) = forward_hidden(cfg, params, tokens, embeds=embeds,
+                                                    collect_kv=True)
     C = cache_len(cfg, max_len)
     if S >= C:
         # ring layout: slot = pos % C. Roll so absolute position p sits at p % C.
@@ -326,8 +385,8 @@ def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, lcache: dict,
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
-    h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _mlp_branch(cfg, lp["mlp"], h2)
+    y, _ = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
+    return x + y
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
@@ -337,7 +396,6 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     The cache's tensors are updated in place; the returned dict holds them
     and the advanced position.
     """
-    check_family(cfg)
     x = _embed(cfg, params, tokens)
     B = x.shape[0]
     pos = cache["pos"]

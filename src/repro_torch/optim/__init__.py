@@ -1,5 +1,6 @@
 """Optimizer-side pieces: AdamW with its cosine schedule and global-norm
-clipping, and the gradient compressors of the compression hop."""
+clipping, and the gradient compressors of the compression hop with their
+error-feedback wrapper."""
 from repro_torch.optim.adamw import (
     OptState,
     adamw_init,
@@ -17,6 +18,7 @@ from repro_torch.optim.compression import (
     compressed_bytes,
     decompress_int8,
     decompress_topk,
+    make_compressor,
 )
 
 __all__ = [
@@ -34,4 +36,5 @@ __all__ = [
     "decompress_int8",
     "decompress_topk",
     "global_norm",
+    "make_compressor",
 ]

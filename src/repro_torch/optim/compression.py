@@ -25,6 +25,11 @@ elementwise IEEE f32 ops, the scale is an f32 division (never a
 multiplication by 1/127), and top-k takes the stable descending argsort, so
 ties go to the lowest index as numpy's stable argsort gives them
 (``torch.topk`` leaves the order among ties unspecified).
+
+``make_compressor(scheme)`` wraps a scheme (``none``, ``int8``, ``topk``)
+into a pair of functions over a parameter pytree (nested dicts of tensors)
+with error feedback: each call compresses ``g + residual`` leaf by leaf and
+returns the new residual, what the payload failed to carry.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize import int8_scale
+from repro_torch.optim.adamw import tree_map
 
 
 class Int8Grad(NamedTuple):
@@ -114,3 +120,44 @@ def compressed_bytes(g, scheme: str, fraction: float = 0.05) -> int:
         k = max(1, int(n * fraction))
         return 8 * k
     return n * itemsize
+
+
+def make_compressor(scheme: str, fraction: float = 0.05):
+    """Returns (compress_tree, decompress_tree) closing over error feedback.
+
+    compress(grads, residual) -> (payload, new_residual); ``residual`` is None
+    on the first call, then the tree the previous call returned.
+    decompress(payload, template) -> grads, each leaf in its template's dtype.
+    """
+    if scheme == "none":
+        def comp_none(grads, residual):
+            return grads, residual
+
+        def decomp_none(payload, template):
+            return payload
+        return comp_none, decomp_none
+
+    if scheme == "int8":
+        compress, decompress = compress_int8, (lambda c, t: decompress_int8(c, t.dtype))
+    elif scheme == "topk":
+        def compress(g):
+            return compress_topk(g, fraction)
+
+        def decompress(c, t):
+            return decompress_topk(c, t.shape, t.dtype)
+    else:
+        raise ValueError(f"unknown compression scheme {scheme!r}")
+
+    def comp(grads, residual):
+        def one(g, r):
+            gf = g.to(torch.float32) + (r if r is not None else 0.0)
+            c = compress(gf)
+            return c, gf - decompress(c, gf)
+        if residual is None:
+            residual = tree_map(lambda _: None, grads)
+        pairs = tree_map(one, grads, residual)
+        return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
+
+    def decomp(payload, template):
+        return tree_map(decompress, payload, template)
+    return comp, decomp

@@ -21,7 +21,6 @@ QUEUED = {
     # placement (dist/sharding.py) and the MoE/enc-dec sharding helpers
     "dist": {"param_specs", "cache_specs", "batch_specs", "sanitize_spec",
              "shard_activations", "shard_heads", "gather_fsdp"},
-    "optim": {"make_compressor"},
     # their counterparts are CUDA entry points with names of their own
     "kernels": {"flash_attention_pallas", "ssd_scan_pallas", "quantize_int8_pallas"},
 }

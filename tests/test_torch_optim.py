@@ -176,3 +176,75 @@ def test_state_dtype_bfloat16_moments():
     assert adamw.tree_leaves(po.mu)[0].dtype == torch.bfloat16
     for a, b in zip(leaves_np(jo.mu) + leaves_np(jo.nu), leaves_np(po.mu) + leaves_np(po.nu)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# make_compressor: error-feedback compression over a pytree
+# (tests/test_optim.py's cases, each against the reference's own compressor)
+# ---------------------------------------------------------------------------
+
+def test_make_compressor_none_is_identity():
+    from repro.optim.compression import make_compressor as jax_make_compressor
+    from repro_torch.optim import make_compressor
+
+    g = {"a": torch.tensor([1.0, -2.0]), "b": {"c": torch.tensor([[3.0]])}}
+    comp, decomp = make_compressor("none")
+    payload, residual = comp(g, None)
+    assert payload is g and residual is None and decomp(payload, g) is g
+    jg = {"a": jnp.asarray([1.0, -2.0])}
+    jcomp, _ = jax_make_compressor("none")
+    assert jcomp(jg, None)[0] is jg
+    with pytest.raises(ValueError, match="scheme"):
+        make_compressor("fp4")
+
+
+def test_error_feedback_accumulates():
+    """With error feedback the compressed sum converges to the true sum; every
+    step's payload and residual equal the reference's."""
+    from repro.optim.compression import make_compressor as jax_make_compressor
+    from repro_torch.optim import make_compressor
+
+    comp, decomp = make_compressor("topk", fraction=0.25)
+    jcomp, jdecomp = jax_make_compressor("topk", fraction=0.25)
+    g = {"w": torch.tensor([1.0, 0.5, 0.25, 0.125])}
+    jg = {"w": jnp.asarray([1.0, 0.5, 0.25, 0.125])}
+    residual = jresidual = None
+    total = torch.zeros(4)
+    for _ in range(16):
+        payload, residual = comp(g, residual)
+        jpayload, jresidual = jcomp(jg, jresidual)
+        assert payload["w"].indices.tolist() == np.asarray(jpayload["w"].indices).tolist()
+        np.testing.assert_array_equal(payload["w"].values.numpy(), np.asarray(jpayload["w"].values))
+        np.testing.assert_array_equal(residual["w"].numpy(), np.asarray(jresidual["w"]))
+        back = decomp(payload, g)["w"]
+        np.testing.assert_array_equal(back.numpy(), np.asarray(jdecomp(jpayload, jg)["w"]))
+        total = total + back
+    # every coordinate eventually flushes through the top-k channel
+    np.testing.assert_allclose((total / 16).numpy(), g["w"].numpy(), atol=0.15)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_compressor_tree(dtype):
+    from repro.optim.compression import make_compressor as jax_make_compressor
+    from repro_torch.optim import make_compressor
+
+    comp, decomp = make_compressor("int8")
+    jcomp, jdecomp = jax_make_compressor("int8")
+    a, b = np.float32([1.0, -2.0]), np.float32([[3.0]])
+    g = {"a": torch.from_numpy(a).to(getattr(torch, dtype)),
+         "b": torch.from_numpy(b).to(getattr(torch, dtype))}
+    jg = {"a": jnp.asarray(a, dtype), "b": jnp.asarray(b, dtype)}
+    payload, residual = comp(g, None)
+    jpayload, jresidual = jcomp(jg, None)
+    back, jback = decomp(payload, g), jdecomp(jpayload, jg)
+    for k in ("a", "b"):
+        assert payload[k].q.numpy().tobytes() == np.asarray(jpayload[k].q).tobytes()
+        assert payload[k].scale.item() == float(jpayload[k].scale)
+        np.testing.assert_array_equal(residual[k].numpy(), np.asarray(jresidual[k]))
+        assert back[k].dtype == g[k].dtype
+        np.testing.assert_array_equal(back[k].float().numpy(), np.asarray(jback[k], np.float32))
+        np.testing.assert_allclose(back[k].float().numpy(), g[k].float().numpy(), atol=0.05)
+    # the residual feeds the next call
+    payload2, _ = comp(g, residual)
+    jpayload2, _ = jcomp(jg, jresidual)
+    assert payload2["a"].q.numpy().tobytes() == np.asarray(jpayload2["a"].q).tobytes()

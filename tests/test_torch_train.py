@@ -130,14 +130,6 @@ def test_train_loss_refuses_pallas():
         api.train_loss(TINY.replace(use_pallas=True), {}, {})
 
 
-@pytest.mark.parametrize("change", [dict(remat="dots"), dict(scan_block=1)])
-def test_unported_training_settings_raise(change):
-    params = api.init_params(TINY, device="cpu")
-    _, pb = batch_pair(TINY.vocab_size, seed=0)
-    with pytest.raises(NotImplementedError):
-        api.train_loss(TINY.replace(**change), params, pb)
-
-
 def test_layer_params_are_views_of_the_stacked_leaves():
     """Serving reads the same elements as per-layer indexing did, and a
     stacked leaf's gradient is one (L, ...) buffer."""
