@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train-only     # phases 1 and 8, then stop
     python3 chip_smoke.py --serve-only     # phases 1-2, 5-6 and 9, then stop
     python3 chip_smoke.py --families-only  # phases 1-2, 3's new flash shapes, 10
+    python3 chip_smoke.py --multirank-only # phases 1 and 11 (builds quantize.cu only)
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
@@ -129,16 +130,41 @@ never JAX or the JAX package, and runs, in order:
      - whisper-tiny at full width and depth: ``api.prefill`` of random
        frames (B=4, 1500 x 384) and a 64-token prompt (12 flash launches:
        4 encoder, 4 decoder self- and 4 cross-attention), then 16 greedy
-       decode steps (none).
+       decode steps (none);
+ 11. the multi-rank runtime (the earlier phases' tensors freed first):
+     a. NCCL at world size 1: phase 7's path (16 ranks in legions of 4, the
+        516 MB payloads, the int8 hop) once on the one-device plane, then
+        with the process group started by ``init_from_env("cuda")``, which
+        runs the plane's group path: byte-identical per step, the absmax
+        and quantize launches counted over the group's run;
+     b. four ranks on the one card over gloo (``backend="gloo"`` named
+        explicitly; NCCL refuses two ranks on one card), each a process of
+        this script (``--multirank-worker DIR``, started with torchrun's
+        variables): a ``Session(8)`` campaign in two legions of 4, int8 on
+        the cross-legion hop, through a substitution (node 5 by spare 8) and
+        a shrink (node 1, the pool empty), beside the sim plane: every
+        result byte-equal to the numpy fold and every error-feedback
+        residual to the numpy twins', the kernels counted on every rank;
+        then one gather of the survivors' payloads, bytes as sent;
+        full-width llama3.2-3b's params (bf16, drawn on the card, 6.4 GB a
+        rank) registered as the trainer registers them and resharded after
+        each repair, the last time from 4 ranks to 3 (each ``ReshardReport``
+        and every leaf's placements printed; every leaf reassembled and its
+        fingerprint held to the one taken before registration);
+     c. on the same four ranks, ``agree_bitmap_inprogram`` and
+        ``make_hierarchical_allreduce`` over a (pod=2, data=2) mesh, against
+        the AND of the bitmaps' rows and the sum of the blocks.
+     A rank that fails, or runs past 600 s, stops every rank and the phase.
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
 kernels' JSON record (each kernel's time, bound and share of the bound,
 its launches on every path: each model's continuous serve run under its
 name, the lock-step run under "<name>/lockstep", the train runs', phase
-10's runs under their names) and ``{"ok": true, "device": {...}}``;
-``--kernels-only``, ``--train-only``, ``--serve-only`` and
-``--families-only`` print neither of the last two.
+10's runs under their names, phase 11's as "multirank:nccl1" and
+"multirank:gloo4", summed over the ranks) and ``{"ok": true, "device":
+{...}}``; ``--kernels-only``, ``--train-only``, ``--serve-only``,
+``--families-only`` and ``--multirank-only`` print neither of the last two.
 """
 from __future__ import annotations
 
@@ -639,6 +665,330 @@ def runtime_phase(torch, P, PM, ops, Q, dev, counters) -> dict:
           f"launches): median {statistics.median(host_ms):.3f} ms, per step "
           f"{[round(t, 3) for t in host_ms]}")
     return rt_launches
+
+
+# ---- the multi-rank runtime (phase 11) ------------------------------------
+MR_WORLD = 4                    # ranks on the one card, over gloo
+MR_NODES, MR_LEGION, MR_SPARES = 8, 4, 1
+MR_THRESHOLD = 4                # hierarchical from 4 nodes: two legions of 4, masters 0 and 4
+# node 5 (rank 1) dies and spare 8 (rank 0) takes its place; then node 1
+# dies with the pool empty and is shrunk away: rank 1 holds no node any
+# more, and the survivors' mesh goes from 4 ranks to 3
+MR_FAULTS = [(2, 5), (4, 1)]
+MR_STEPS = 6
+MR_ELEMS = 4_194_304            # an integer-valued f32 payload a node (16 MiB)
+MR_ARCH = "llama3.2-3b"         # the registered state: its params at full width
+MR_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mr_payload(torch, dev, node, step, n):
+    """Node ``node``'s payload at ``step``: small integers in f32, whose sums
+    are exact in any order."""
+    i = torch.arange(n, device=dev, dtype=torch.int64)
+    return ((i * (node + 3) + step) % 13 - 6).to(torch.float32)
+
+
+def fingerprint(torch, t) -> int:
+    """A position-weighted sum of ``t``'s bit patterns (int64 on t's device,
+    wrapping): equal for equal bytes, and any moved or changed element
+    shows."""
+    flat = t.detach().reshape(-1)
+    bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[flat.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 26
+    for s in range(0, bits.numel(), step):
+        b = bits[s:s + step].to(torch.int64)
+        total += (b * (torch.arange(s, s + b.numel(), device=t.device) % 65521 + 1)).sum()
+    return int(total)
+
+
+def leaves_of(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_of(v, path + (str(k),))
+    else:
+        yield path, tree
+
+
+def nccl_world1(torch, P, PM, dev, counters) -> dict:
+    """Phase 11a: the runtime phase's path (16 ranks in legions of 4, 516 MB
+    payloads, the int8 hop) on the one-device plane, then the same script
+    with the process group started by ``init_from_env`` (NCCL on the card)
+    at world size 1, which runs the plane's group path: byte-equal results,
+    stages and clock; the kernels counted over the group's run."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import init_from_env
+
+    _, one = runtime_run(torch, P, PM, dev, GRAD_ELEMS, "torch")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_from_env(dev.type)
+        backend = dist.get_backend()
+        zero(counters)
+        sess, group = runtime_run(torch, P, PM, dev, GRAD_ELEMS, "torch")
+        launches = launches_of(torch, counters)
+        plane = sess.cluster.dataplane
+        if not (plane.distributed and plane.world == 1) or sess.cluster.reshards:
+            raise AssertionError("the plane did not take the process group's path")
+        del sess
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    same = [torch.equal(a["out"].view(torch.int32), b["out"].view(torch.int32))
+            and a["stages"] == b["stages"] and a["sim_seconds"] == b["sim_seconds"]
+            for a, b in zip(one, group)]
+    compressed = sum(r["compressed"] for r in group)
+    print(f"[11a] {backend}, one rank (init_from_env({dev.type!r})): {RUNTIME_STEPS} allreduces "
+          f"of {GRAD_ELEMS} f32 a rank over the group path, byte-identical to the one-device "
+          f"plane per step (results, stages, sim_seconds): {same}")
+    print(f"[11a] allreduce ms (wall, card synchronised), one-device plane "
+          f"{[round(r['allreduce_ms'], 3) for r in one]}; {backend}, one rank "
+          f"{[round(r['allreduce_ms'], 3) for r in group]}; launches {json.dumps(launches)}")
+    want = {"flash_attention": 0, "ssd_scan": 0, "absmax": compressed,
+            "quantize_int8": compressed}
+    if not all(same) or len(same) != RUNTIME_STEPS:
+        raise AssertionError("the group path at world size 1 differs from the one-device plane")
+    if launches != want or compressed == 0:
+        raise AssertionError(f"phase 11a launches {launches}, expected {want}")
+    out = dict(backend=backend, launches=launches,
+               allreduce_ms_one_device=[r["allreduce_ms"] for r in one],
+               allreduce_ms_group=[r["allreduce_ms"] for r in group])
+    del one, group
+    torch.cuda.empty_cache()
+    return out
+
+
+def multirank_worker(torch, dev, cfg, elems, out_path: Path) -> dict:
+    """Phase 11b and 11c on one rank of MR_WORLD (started by the parent with
+    torchrun's variables): the Session campaign through a substitution and a
+    shrink with int8 compression, beside the sim plane; cfg's params
+    registered and resharded; the in-program functions on a (pod=2, data=2)
+    mesh. Writes its record to ``out_path`` and returns it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import core as P, mpi as PM
+    from repro_torch.core.agreement import agree_bitmap_inprogram
+    from repro_torch.core.collectives import make_hierarchical_allreduce
+    from repro_torch.dist import init_from_env
+    from repro_torch.dist.sharding import assemble, leaf_spec, placements
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.models import api
+
+    dev = init_from_env(dev.type, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    tag = f"[11b] rank {rank}"
+    print(f"{tag} of {world}: backend {dist.get_backend()} (named explicitly), device {dev}",
+          flush=True)
+    counters = {"absmax": Q.absmax_cuda, "quantize_int8": Q.quantize_int8_cuda}
+
+    def session(plane, device):
+        policy = P.LegioPolicy(legion_size=MR_LEGION, hierarchical_threshold=MR_THRESHOLD,
+                               recovery_mode="substitute_then_shrink", spare_nodes=MR_SPARES,
+                               grad_compression="int8", data_plane=plane)
+        return PM.Session(MR_NODES, policy=policy, injector=P.FaultInjector.at(MR_FAULTS),
+                          device=device)
+
+    sess, sim = session("torch", dev), session("sim", "cpu")
+    plane = sess.cluster.dataplane
+    if not (plane.distributed and plane.world == world and plane.rank == rank):
+        raise AssertionError(f"{tag}: the plane did not take the process group")
+    holder = {"params": api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)}
+    prints = {path: fingerprint(torch, leaf) for path, leaf in leaves_of(holder["params"])}
+    n_bytes = sum(leaf.numel() * leaf.element_size() for _, leaf in leaves_of(holder["params"]))
+    sess.register_sharded_state("trainer.params", lambda: holder["params"],
+                                lambda p: holder.update(params=p))
+    torch.cuda.synchronize()
+    zero(counters)
+    steps = []
+    for step in range(MR_STEPS):
+        sess.advance(step)
+        sim.advance(step)
+        if list(sess.cluster.topo.nodes) != list(sim.cluster.topo.nodes):
+            raise AssertionError(f"{tag} step {step}: the topologies diverged")
+        live = [m for m in sess.world.members if m not in sess.cluster.failed]
+        contrib = {m: mr_payload(torch, dev, m, step, elems) for m in live}
+        host = {m: v.cpu().numpy() for m, v in contrib.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sess.world.allreduce(contrib)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        res_s = sim.world.allreduce(host)
+        got = res.data[sess.world.members[0]].cpu().numpy()
+        want = res_s.data[sim.world.members[0]]
+        resid, resid_s = sess.cluster.compress_residuals, sim.cluster.compress_residuals
+        steps.append(dict(
+            step=step, size=sess.world.size, allreduce_ms=ms,
+            repaired=bool(sess.take_actions()),
+            level1=next(st[1] for st in res.stages if st[0] == "global"),
+            bytes_equal=got.tobytes() == want.tobytes(),
+            control_equal=res.stages == res_s.stages and res.sim_seconds == res_s.sim_seconds,
+            residuals_equal=set(resid) == set(resid_s) and all(
+                resid[m].cpu().numpy().tobytes() == resid_s[m].tobytes() for m in resid_s)))
+        del contrib, host, res
+    launches = launches_of(torch, counters)
+    # a gather of CUDA payloads over gloo: each owner's rows summed as bytes
+    live = [m for m in sess.world.members if m not in sess.cluster.failed]
+    sent = {m: mr_payload(torch, dev, m, MR_STEPS, elems) for m in live}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gathered = sess.world.gather(sent)
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t0) * 1e3
+    gather_ok = set(gathered) == set(live) and all(
+        torch.equal(gathered[m].view(torch.int32), sent[m].view(torch.int32)) for m in live)
+    del sent, gathered
+    reshards = [dict(leaves=r.leaves, n_devices=r.n_devices, moved_bytes=r.moved_bytes,
+                     wall_seconds=r.wall_seconds, mesh_shape=list(r.mesh_shape))
+                for r in sess.cluster.reshards]
+    mesh = plane.mesh_for(sess.cluster.topo.view())
+    placed, held = {}, 0
+    for path, leaf in leaves_of(holder["params"]):
+        want_p = placements(leaf_spec(path, tuple(leaf.shape), mesh), mesh)
+        if leaf.device_mesh != mesh or tuple(leaf.placements) != want_p:
+            raise AssertionError(f"{tag}: {'.'.join(path)} placed {leaf.placements}")
+        placed[".".join(path)] = dict(placements=[repr(p) for p in leaf.placements],
+                                      local=list(leaf.to_local().shape))
+        held += leaf.to_local().numel() * leaf.to_local().element_size()
+    # every rank assembles every leaf together (a collective): no short cut
+    intact = all([fingerprint(torch, assemble(leaf)) == prints[path]
+                  for path, leaf in leaves_of(holder["params"])])
+    hop = mr_payload(torch, dev, 0, 0, elems)
+    hop_ms = time_ms(torch, lambda: plane.compress(hop, "int8", 0.0), runs=10, reps=10)
+
+    # 11c: the in-program functions on a (pod=2, data=2) mesh of the ranks
+    m22 = DeviceMesh(dev.type, torch.arange(world).reshape(2, world // 2),
+                     mesh_dim_names=("pod", "data"))
+    gen = torch.Generator().manual_seed(11)
+    bitmaps = (torch.rand((2 * world, 64), generator=gen) > 0.05).to(torch.int32)
+    agreed = agree_bitmap_inprogram(m22, bitmaps.to(dev))
+    agree_ok = agreed.tobytes() == bitmaps.amin(0).numpy().tobytes()
+    x = torch.randint(-50, 50, (2 * world, 1024), generator=gen).to(torch.float32)
+    spec = (("pod", "data"),)
+    y = make_hierarchical_allreduce(m22, spec)(
+        distribute_tensor(x.to(dev), m22, placements(spec, m22), src_data_rank=None))
+    allreduce_ok = torch.equal(y.to_local().cpu(), x.reshape(world, 2, 1024).sum(0))
+    record = dict(rank=rank, world=world, backend=dist.get_backend(), steps=steps,
+                  launches=launches, gather_ok=gather_ok, gather_ms=gather_ms,
+                  gathered=len(live), reshards=reshards, placements=placed, held_bytes=held,
+                  state_bytes=n_bytes, intact=intact, hop_ms=hop_ms,
+                  agreed_alive=int(agreed.sum()), agree_ok=agree_ok, allreduce_ok=allreduce_ok,
+                  peak_bytes=torch.cuda.max_memory_allocated())
+    dist.barrier()
+    dist.destroy_process_group()
+    out_path.write_text(json.dumps(record))
+    return record
+
+
+def multirank_check(records: list[dict]) -> dict:
+    """Phase 11b/c's verdict over every rank's record."""
+    launches = {"absmax": 0, "quantize_int8": 0}
+    for rec in records:
+        tag = f"[11b] rank {rec['rank']}"
+        level1 = sum(s["level1"] for s in rec["steps"])
+        for s in rec["steps"]:
+            print(f"{tag} step {s['step']}: {s['size']} nodes, allreduce {s['allreduce_ms']:.3f} ms "
+                  f"(wall, card synchronised{'; a repair and its reshard inside' if s['repaired'] else ''}), "
+                  f"level-1 participants {s['level1']}, result == "
+                  f"numpy fold bytewise {s['bytes_equal']}, int8 residuals == numpy twins "
+                  f"bytewise {s['residuals_equal']}, stages and sim_seconds equal "
+                  f"{s['control_equal']}")
+        print(f"{tag}: launches {json.dumps(rec['launches'])} (level-1 participants summed "
+              f"{level1}); compression hop {rec['hop_ms']:.4f} ms a call at {MR_ELEMS} f32; "
+              f"gather of {rec['gathered']} nodes' payloads {rec['gather_ms']:.3f} ms (wall, card "
+              f"synchronised), bytes as sent {rec['gather_ok']}; "
+              f"reshards {json.dumps(rec['reshards'])}; state held after "
+              f"{rec['held_bytes']} B of {rec['state_bytes']} B; reassembled leaves intact "
+              f"{rec['intact']}; peak memory {rec['peak_bytes']} B")
+        print(f"[11c] rank {rec['rank']}: agree_bitmap_inprogram on (pod=2, data=2) == AND of "
+              f"the rows {rec['agree_ok']} ({rec['agreed_alive']} of 64 alive); "
+              f"make_hierarchical_allreduce == sum of the blocks {rec['allreduce_ok']}")
+        if rec["backend"] != "gloo" or len(rec["steps"]) != MR_STEPS or not all(
+                s["bytes_equal"] and s["residuals_equal"] and s["control_equal"]
+                for s in rec["steps"]):
+            raise AssertionError(f"{tag}: the campaign differs from the numpy fold")
+        if rec["launches"] != {"absmax": level1, "quantize_int8": level1} or level1 == 0:
+            raise AssertionError(f"{tag}: launches {rec['launches']}, expected {level1} each")
+        shapes = [tuple(r["mesh_shape"]) for r in rec["reshards"]]
+        if shapes[-2:] != [(MR_WORLD, 1), (MR_WORLD - 1, 1)] or not all(
+                r["wall_seconds"] > 0 and r["moved_bytes"] == rec["state_bytes"]
+                for r in rec["reshards"]):
+            raise AssertionError(f"{tag}: reshards {rec['reshards']}")
+        if not (rec["intact"] and rec["agree_ok"] and rec["allreduce_ok"] and rec["gather_ok"]):
+            raise AssertionError(f"{tag}: placed state or in-program results wrong")
+        for k in launches:
+            launches[k] += rec["launches"][k]
+    if len({json.dumps(r["reshards"][-1]["mesh_shape"]) for r in records}) != 1 or \
+            len({r["reshards"][-1]["wall_seconds"] for r in records}) != 1:
+        raise AssertionError("the ranks disagree on the last reshard")
+    first = records[0]
+    for name, p in first["placements"].items():
+        print(f"[11b] {name}: placements {p['placements']}, rank 0 holds {p['local']}")
+    return {"flash_attention": 0, "ssd_scan": 0, **launches}
+
+
+def multirank_phase(torch, P, PM, dev, counters) -> dict:
+    """Phase 11: (a) NCCL at world size 1 in this process; (b, c) MR_WORLD
+    ranks on the one card over gloo, each a process of this script with
+    ``--multirank-worker``. A rank that fails or outlives MR_TIMEOUT_S
+    fails the phase (every rank is stopped). Returns the launches by path."""
+    t0 = time.perf_counter()
+    a = nccl_world1(torch, P, PM, dev, counters)
+    out_dir = ROOT / "build" / "multirank"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = str(free_port())
+    procs = []
+    for rank in range(MR_WORLD):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(MR_WORLD), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=port)
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        log = open(out_dir / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                        "--multirank-worker", str(out_dir)],
+                                       env=env, stdout=log, stderr=subprocess.STDOUT,
+                                       cwd=str(ROOT)), log))
+    deadline = time.monotonic() + MR_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            if any(p.poll() not in (None, 0) for p, _ in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    for rank in range(MR_WORLD):
+        print((out_dir / f"rank{rank}.log").read_text().rstrip())
+    codes = [p.returncode for p, _ in procs]
+    if any(codes):
+        raise AssertionError(f"phase 11b: rank exit codes {codes} (a kill means a rank failed "
+                             f"first or {MR_TIMEOUT_S} s passed)")
+    records = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(MR_WORLD)]
+    b_launches = multirank_check(records)
+    print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return {"multirank:nccl1": a["launches"], f"multirank:gloo{MR_WORLD}": b_launches}
 
 
 # ---- serving through the engine (phases 5-6) and the fault zoo (phase 9) ---
@@ -1313,6 +1663,7 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
     from repro_torch.data.pipeline import make_batch
 
     llama, mamba = cfgs
+    base = torch.cuda.memory_allocated()
     checks = train_checks(torch, api, llama, dev)
     torch.cuda.empty_cache()
     checks["knobs"] = knob_checks(torch, api, llama, dev)
@@ -1361,9 +1712,12 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
                    loss=[r["loss"] for r in records], peak_bytes=peak,
                    median_fault_free_ms=statistics.median(steady), profile=prof,
                    launches=launches, **checks)
-    del trainer
-    gc.collect()            # the trainer's state getters close a reference cycle
+    del trainer             # its state getters hold it weakly: freed here, no gc.collect
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - base
+    print(f"[8] {llama.name} trainer dropped: {held} B above the phase's start still held")
+    if held > 2**31:
+        raise AssertionError(f"a dropped trainer still holds {held} B")
 
     m_trainer, m_records, m_launches, m_peak = train_run(
         torch, P, mamba, dev, steps=MAMBA_TRAIN_STEPS, faults=[], counters=counters,
@@ -1383,7 +1737,6 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
                             loss=[r["loss"] for r in m_records], peak_bytes=m_peak,
                             launches=m_launches)
     del m_trainer
-    gc.collect()
     torch.cuda.empty_cache()
     return summary
 
@@ -1395,10 +1748,18 @@ def main(argv: list[str]) -> int:
     train_only = "--train-only" in argv      # phases 1 and 8, then stop
     serve_only = "--serve-only" in argv      # phases 1-2, 5-6 and 9, then stop
     families_only = "--families-only" in argv  # phases 1-2, 3's family shapes, 10
+    multirank_only = "--multirank-only" in argv  # phases 1 and 11
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if "--multirank-worker" in argv:   # one rank of phase 11b, started by phase 11
+        from repro_torch.configs.registry import get_config
+
+        out_dir = Path(argv[argv.index("--multirank-worker") + 1])
+        multirank_worker(torch, torch.device("cuda"), get_config(MR_ARCH), MR_ELEMS,
+                         out_dir / f"rank{os.environ['RANK']}.json")
+        return 0
 
     import numpy as np
 
@@ -1431,6 +1792,12 @@ def main(argv: list[str]) -> int:
     counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
                 "absmax": quantize.absmax_cuda, "quantize_int8": quantize.quantize_int8_cuda}
     train_cfgs = (get_config("llama3.2-3b"), get_config("mamba2-130m"))
+    if multirank_only:
+        lib_paths = _build.build(["quantize"])
+        print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)}")
+        mr_launches = multirank_phase(torch, rt_core, rt_mpi, dev, counters)
+        print(json.dumps({"multirank_only": mr_launches}))
+        return 0
     if train_only:
         train = train_phase(torch, rt_core, api, train_cfgs, dev, counters)
         print(json.dumps({"train_only": train}, default=str))
@@ -1732,13 +2099,19 @@ def main(argv: list[str]) -> int:
     launches_by_path.update(families.pop("launches_by_path"))
     print(json.dumps({"families": families}, default=str))
 
+    # ---- 11. the multi-rank runtime ------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_launches = dict(train_launches)
+    path_launches.update(multirank_phase(torch, rt_core, rt_mpi, dev, counters))
+
     def entry(name, replaces, shapes):
         """One kernel's record at the serve path (hymba-1.5b, continuous): its
         shape, its launches; every measured shape under ``shapes`` and every
         serve run's launches under ``launches_by_path``, the train runs' (0)
         too."""
         by_path = {arch: launches[name] for arch, launches in launches_by_path.items()}
-        by_path.update({path: launches[name] for path, launches in train_launches.items()})
+        by_path.update({path: launches[name] for path, launches in path_launches.items()})
         main = next(x for x in shapes if x["shape"].startswith("hymba-1.5b"))
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu", "replaces": replaces,
@@ -1749,9 +2122,9 @@ def main(argv: list[str]) -> int:
 
     def quant_entry(name, replaces):
         """One compression-hop kernel's record: the runtime phase's launches
-        (and the train runs', 0), the path shape's numbers."""
+        (and the train runs', 0, and phase 11's), the path shape's numbers."""
         by_path = {"runtime": rt_launches[name],
-                   **{path: launches[name] for path, launches in train_launches.items()}}
+                   **{path: launches[name] for path, launches in path_launches.items()}}
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/quantize.cu", "replaces": replaces,
                 "launches": rt_launches[name], "launches_by_path": by_path,

@@ -9,6 +9,7 @@ Layering (paper section -> module):
   §V  shrink         S(x) cost model, Eq. 1-4, Fig. 3 repair plans
   —   substitute     warm spare pool, substitution repair, elastic provisioner
   §V  collectives    hierarchical op schedules over the data-plane seam
+  —   mesh_manager   survivors -> DeviceMesh, reshard, compile cache
   §IV batch          DROP / REBALANCE shard reassignment
   §IV executor       transparent orchestration draining the pipeline
   §VII cr            per-legion checkpoint/restart (restart-only-failed)
@@ -20,9 +21,9 @@ The control plane is numpy and host Python, carried over from the JAX
 package; payloads ride the data plane (``repro_torch.dist.dataplane``),
 device tensors on the torch plane. Applications program against
 :mod:`repro_torch.mpi` (Session/Comm); everything here is the machinery
-behind it. The mesh manager comes with the multi-card slice.
+behind it.
 """
-from repro_torch.core.agreement import agree_fault, agreement_rounds
+from repro_torch.core.agreement import agree_fault, agreement_rounds, liveness_psum
 from repro_torch.core.batch import (
     BatchPlan,
     gradient_scale,
@@ -68,6 +69,7 @@ from repro_torch.core.hierarchy import (
     TopologyView,
     make_topology,
 )
+from repro_torch.core.mesh_manager import CompileCache, DevicePool, MeshManager
 from repro_torch.core.pipeline import FaultPipeline
 from repro_torch.core.policy import (
     RECOVERY_MODES,
@@ -120,13 +122,13 @@ from repro_torch.core.types import (
 
 __all__ = [
     "AdaptiveDecision", "BatchPlan", "ChaosAction", "ChaosEvent",
-    "ChaosHarness", "ChaosReport", "CollectiveResult",
-    "CostModelStrategy", "FailureEvent", "FailureKind", "FaultCampaign",
+    "ChaosHarness", "ChaosReport", "CollectiveResult", "CompileCache",
+    "CostModelStrategy", "DevicePool", "FailureEvent", "FailureKind", "FaultCampaign",
     "FaultEvent", "FaultInjector", "FaultModel", "FaultPipeline",
     "FaultSource", "HeartbeatDetector", "HierarchicalCollectives",
     "InvariantCheck", "Legion", "LegionCheckpointer", "LegionTopology",
     "LegioExecutor",
-    "LegioPolicy", "LevelGroup", "LinkModel", "NodeState",
+    "LegioPolicy", "LevelGroup", "LinkModel", "MeshManager", "NodeState",
     "NonblockingSubstituteStrategy", "OpStatus", "PendingSubstitution",
     "PipelineTrace", "RECOVERY_MODES", "RecoveryAction", "RecoveryStrategy",
     "RepairReport", "RepairScope", "RepairStep", "ResilientTrainer",
@@ -138,7 +140,7 @@ __all__ = [
     "agreement_rounds", "agreement_time", "available_strategies",
     "check_topology_coherence",
     "eq3_s_of_k", "eq4_s_of_k", "failures_by_legion", "flat_collective_time",
-    "gradient_scale", "initial_assignment", "make_strategy", "make_topology",
+    "gradient_scale", "initial_assignment", "liveness_psum", "make_strategy", "make_topology",
     "make_train_step",
     "notice_fault", "optimal_k_linear", "optimal_k_quadratic", "optimal_kd",
     "reassign", "register_strategy", "restore_for_substitute",

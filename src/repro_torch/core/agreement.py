@@ -3,19 +3,26 @@
 After a collective on a faulty communicator only *some* survivors hold a
 PROC_FAILED verdict (the Broadcast Notification Problem, P.3). Legio runs an
 agreement that "combines the results obtained by all the processes into a
-single one equal for all". :func:`agree_fault` is the runtime-level form:
-the union of per-observer suspicion sets, which all survivors adopt (what
-the repair path consumes).
+single one equal for all". Two implementations:
+
+  * :func:`agree_fault` — runtime-level: union of per-observer suspicion
+    sets; all survivors adopt the union (what the repair path consumes).
+  * :func:`liveness_psum` / :func:`agree_bitmap_inprogram` — in-program:
+    a liveness bitmap AND-reduce as one (n_nodes,) int32 ``all_reduce``
+    over the ranks' process groups (the JAX package runs it as a ``psum``
+    under ``shard_map``).
 
 The agreement itself must tolerate faults (ULFM guarantees this); here the
 union over live observers is trivially fault-tolerant because dead observers
-simply contribute nothing. The in-program liveness bitmap all-reduce (the
-JAX package's ``liveness_psum`` / ``agree_bitmap_inprogram``) needs a
-multi-device process group and comes with the multi-card slice.
+simply contribute nothing.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.dist.sharding import mesh_sizes
 
 
 def agree_fault(observations: dict[int, set[int]], live: list[int]) -> set[int]:
@@ -36,3 +43,49 @@ def agree_fault(observations: dict[int, set[int]], live: list[int]) -> set[int]:
 def agreement_rounds(n_participants: int) -> int:
     """Tree-agreement depth — used by the repair cost model (log2 rounds)."""
     return max(1, int(np.ceil(np.log2(max(n_participants, 2)))))
+
+
+# ---------------------------------------------------------------------------
+# In-program liveness bitmap (torch.distributed)
+# ---------------------------------------------------------------------------
+
+def liveness_psum(local_bitmap: torch.Tensor, group) -> torch.Tensor:
+    """AND-reduce liveness bitmaps: each rank holds (n_nodes,) int32 with 1
+    for nodes *it* believes alive; the sum of dead-votes ``1 - x`` over the
+    group is 0 exactly where every rank votes alive. ``group`` is a process
+    group or a sequence of them, summed in turn (a sum of integers in any
+    order)."""
+    dead_votes = (1 - local_bitmap).to(torch.int32)
+    for g in (group if isinstance(group, (tuple, list)) else (group,)):
+        dist.all_reduce(dead_votes, group=g)
+    return (dead_votes == 0).to(torch.int32)
+
+
+def agree_bitmap_inprogram(mesh, bitmaps: torch.Tensor) -> np.ndarray | None:
+    """Run the liveness AND-reduce over the mesh's ``pod``/``data`` dims.
+
+    bitmaps: (n_shards, n_nodes) int32, row i shard i's local view, the
+    same tensor on every rank; rows are split over the ``pod`` and ``data``
+    dims (``pod`` major), as the JAX package's ``in_specs`` split them, and
+    each rank ANDs its own rows before the reduce. Returns the agreed
+    (n_nodes,) bitmap, identical on every rank of the mesh (None on a rank
+    outside it). A mesh with neither dim takes the host path.
+    """
+    names = tuple(mesh.mesh_dim_names)
+    axes = tuple(a for a in ("pod", "data") if a in names)
+    if not axes:
+        return torch.amin(bitmaps, dim=0).cpu().numpy()
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return None
+    sizes = mesh_sizes(mesh)
+    shards = int(np.prod([sizes[a] for a in axes]))
+    if bitmaps.shape[0] % shards:
+        raise ValueError(f"{bitmaps.shape[0]} bitmap rows do not split over {shards} shards")
+    index = 0
+    for a in axes:
+        index = index * sizes[a] + coord[names.index(a)]
+    rows = bitmaps.shape[0] // shards
+    local = torch.amin(bitmaps[index * rows:(index + 1) * rows], dim=0)
+    groups = tuple(mesh.get_group(a) for a in axes)
+    return liveness_psum(local, groups).cpu().numpy()

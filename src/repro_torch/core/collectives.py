@@ -27,9 +27,14 @@ hops ride fast links; the cross-legion (global_comm) hop rides slow links.
 between the two link classes), kept so that both packages charge the same
 simulated seconds; they are a model, not a measurement of any card.
 
-The in-program two-stage all-reduce (the JAX package's ``hierarchical_psum``
-family under ``shard_map``) needs a multi-device process group and comes
-with the multi-card slice.
+``H100_LINKS`` is a separately named ``LinkModel`` at an H100 cluster's
+datasheet bandwidths, for callers who want the schedules charged at those
+figures; nothing uses it by default.
+
+The in-program collectives (the JAX package's ``hierarchical_psum`` family
+under ``shard_map``) run over ``torch.distributed`` process groups, one
+process per rank: :func:`hierarchical_psum`, :func:`hierarchical_psum_scatter`
+and :func:`make_hierarchical_allreduce` over a ``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.hierarchy import LegionTopology
 
@@ -100,6 +106,16 @@ class LinkModel:
         if level >= 2 and self.level_slowdown != 1.0:
             t *= self.level_slowdown ** (level - 1)
         return t
+
+
+# An H100 SXM cluster's links, from NVIDIA's datasheets (figures, not
+# measurements): fourth-generation NVLink carries 900 GB/s per GPU in both
+# directions together, 450e9 B/s each way, inside a node (the legion);
+# between nodes one ConnectX-7 NDR InfiniBand port per GPU carries 400 Gb/s,
+# 50e9 B/s. The datasheets give no latencies: the alphas are the default
+# model's.
+H100_LINKS = LinkModel(alpha_intra=1.0e-6, beta_intra=450.0e9,
+                       alpha_cross=10.0e-6, beta_cross=50.0e9)
 
 
 @dataclass
@@ -177,7 +193,7 @@ class HierarchicalCollectives:
         topo = self.topo
         # one data-plane hop moves the root's payload (a device tensor on
         # torch, identity on sim); the schedule below fans the result out
-        payload = self.dataplane.bcast_payload(payload)
+        payload = self.dataplane.bcast_payload(payload, root=root)
         nbytes = payload_nbytes(payload)
         stages: list[tuple[str, int, float]] = []
         data = {root: payload}
@@ -240,8 +256,9 @@ class HierarchicalCollectives:
         if topo.n_legions == 1:
             lg = topo.legions[0]
             t = self._stage(stages, "world", len(lg), nbytes, cross=False)
+            present = [n for n in lg.members if n in contributions]
             total = self.dataplane.reduce(
-                [contributions[n] for n in lg.members if n in contributions], op)
+                [contributions[n] for n in present], op, nodes=present)
             return CollectiveResult("reduce", t, {root: total}, stages)
         # 1. each local_comm reduces to its master — in parallel
         t_total = 0.0
@@ -250,15 +267,16 @@ class HierarchicalCollectives:
         for lg in topo.legions:
             if not lg.members:
                 continue
-            parts = [contributions[n] for n in lg.members if n in contributions]
-            if not parts:
+            present = [n for n in lg.members if n in contributions]
+            if not present:
                 # whole legion is silent this step (e.g. a just-spliced spare
                 # that has not computed yet) — it simply contributes nothing
                 continue
             t = self._lstage(stages, f"local_{lg.index}", len(lg), nbytes,
                              level=0)
             t_par = max(t_par, t)
-            partials[lg.master] = self.dataplane.reduce(parts, op)
+            partials[lg.master] = self.dataplane.reduce(
+                [contributions[n] for n in present], op, nodes=present)
         t_total += t_par
         if not partials:
             # every contributor has left the topology (e.g. the whole
@@ -284,11 +302,12 @@ class HierarchicalCollectives:
                 if level == 1 and self.compression != "none" and op in (np.add,):
                     sent = [self._compress_cross(m, partials[m])
                             for m in contributing]
-                    reduced = self.dataplane.reduce([s[0] for s in sent], op)
+                    reduced = self.dataplane.reduce([s[0] for s in sent], op,
+                                                    nodes=contributing)
                     gbytes = max(s[1] for s in sent)
                 else:
                     reduced = self.dataplane.reduce(
-                        [partials[m] for m in contributing], op)
+                        [partials[m] for m in contributing], op, nodes=contributing)
                 t = self._lstage(stages, topo.comm_name(level, g.index),
                                  len(contributing), gbytes, level=level)
                 t_par = max(t_par, t)
@@ -366,3 +385,66 @@ def agreement_time(link: LinkModel, n: int) -> float:
     """Cost of the post-collective fault agreement (BNP fix): one zero-byte
     allreduce over n participants — Legio's per-call overhead."""
     return 2.0 * link.tree_time(n, 8, cross=True)
+
+
+# ---------------------------------------------------------------------------
+# In-program collectives over torch.distributed process groups
+# ---------------------------------------------------------------------------
+
+def hierarchical_psum(x: torch.Tensor, legion_group, member_group) -> torch.Tensor:
+    """Two-stage all-reduce: within the legion first (fast links), then
+    across legions (slow links). Equal to one sum over both groups for
+    integers; it pins the reduction order to the paper's Fig. 4. ``x`` is
+    not modified."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=member_group)
+    dist.all_reduce(out, group=legion_group)
+    return out
+
+
+def hierarchical_psum_scatter(x: torch.Tensor, legion_group, member_group,
+                              scatter_dim: int = 0) -> torch.Tensor:
+    """Bandwidth-optimal variant: reduce-scatter within the legion (member
+    ``i`` keeps the ``i``-th block of the sum along ``scatter_dim``), then
+    all-reduce the blocks across legions, leaving the result scattered over
+    the members (the caller all-gathers after the optimizer update)."""
+    members = dist.get_world_size(member_group)
+    xs = x.movedim(scatter_dim, 0).contiguous()
+    if xs.shape[0] % members:
+        raise ValueError(f"dim {scatter_dim} of size {xs.shape[0]} does not split "
+                         f"over {members} members")
+    out = torch.empty((xs.shape[0] // members, *xs.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, xs, group=member_group)
+    dist.all_reduce(out, group=legion_group)
+    return out.movedim(0, scatter_dim)
+
+
+def make_hierarchical_allreduce(mesh, spec: tuple):
+    """fn(x) -> the all-reduce of x over the mesh's batch dims, two-stage.
+
+    ``x`` is a DTensor placed on ``mesh`` by ``spec`` (the JAX package's
+    ``in_specs``); the result is a DTensor with the same placements whose
+    local block is the sum of every batch shard's block (its ``out_specs``).
+    On a ``("pod", "data", "model")`` mesh the legion dim is ``pod`` (slow
+    links) and the member dim ``data``; a ``("data", "model")`` mesh reduces
+    over ``data`` in one stage. The groups come from ``mesh.get_group``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import placements
+
+    where = placements(spec, mesh)
+    has_pod = "pod" in mesh.mesh_dim_names
+
+    def _allreduce(x):
+        if not isinstance(x, DTensor) or x.device_mesh != mesh or tuple(x.placements) != where:
+            raise ValueError(f"expected a DTensor on {mesh} placed {where}")
+        local = x.to_local()
+        if has_pod:
+            out = hierarchical_psum(local, mesh.get_group("pod"), mesh.get_group("data"))
+        else:
+            out = local.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(out, group=mesh.get_group("data"))
+        return DTensor.from_local(out, mesh, where, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    return _allreduce

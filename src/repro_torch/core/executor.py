@@ -415,12 +415,12 @@ class VirtualCluster:
                                setter: Callable[[Any], None] | None = None
                                ) -> None:
         """Register a live-state pytree (via getter/setter) for post-repair
-        redistribution on the data plane. On one card (the torch plane) and
-        on the sim plane this is bookkeeping only: every node's state lives
-        on the one device. Resharding over a device mesh after a repair
-        comes with the multi-card slice. Consumers call
-        this — never the data plane directly — so backend selection stays
-        behind LegioPolicy/Session."""
+        redistribution on the data plane. Over a process group of more
+        than one rank the torch plane reshards it after every repair onto
+        the survivors' ``DeviceMesh`` (by ``param_specs``); on one rank and
+        on the sim plane nothing moves: every node's state lives on the one
+        device. Consumers call this — never the data plane directly — so
+        backend selection stays behind LegioPolicy/Session."""
         self.dataplane.register_state(name, getter, setter)
 
     def _reshard_after_repair(self) -> None:
@@ -428,7 +428,7 @@ class VirtualCluster:
         "Shrink or Substitute" observation operationalized: the real cost
         of in-situ recovery is data motion, so it is measured (wall time of
         the redistribution pass, reported by a multi-card plane), not
-        modeled by the alpha-beta formula. One-card planes report None."""
+        modeled by the alpha-beta formula. One-rank planes report None."""
         report = self.dataplane.reshard_registered(self.topo.view())
         if report is not None:
             self.reshards.append(report)

@@ -19,16 +19,23 @@ restart:
 One device holds the whole step: the global batch is the survivors' shards
 concatenated, as the JAX package's single-program step sees it. The
 trainer runs on its cluster's ``device`` ("cuda" unless the cluster was
-built with ``device="cpu"``; without a card "cuda" raises). The JAX
-package also builds a device pool, a mesh manager and a compile cache
-here; its loop never reads them, and on one card there is no mesh to
-rebuild, so they come with the multi-card work. ``TrainerReport.recompiled``
-keeps its meaning: the step saw a mesh change (a repair or an expansion).
+built with ``device="cpu"``; without a card "cuda" raises). It builds a
+device pool, a mesh manager and a compile cache as the JAX package's does;
+its loop never reads them. ``TrainerReport.recompiled`` keeps its meaning:
+the step saw a mesh change (a repair or an expansion).
+
+A data plane over more than one rank is refused at construction: with
+sharded state the step would run on DTensors, which is placement work
+still to come (ROADMAP Queue 1 item 2), and gathering the state back to
+each rank would hide that. The registered state getters hold the trainer
+weakly, so a dropped trainer frees its tensors at once, without waiting for
+the cycle collector.
 """
 from __future__ import annotations
 
 import math
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -38,6 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.cr import LegionCheckpointer
 from repro_torch.core.executor import VirtualCluster
+from repro_torch.core.mesh_manager import CompileCache, DevicePool, MeshManager
 from repro_torch.core.types import RepairReport
 from repro_torch.data.pipeline import host_batch_numpy
 from repro_torch.device import resolve_device
@@ -120,6 +128,12 @@ class ResilientTrainer:
         seq_len: int = 128,
         checkpointer: LegionCheckpointer | None = None,
     ):
+        ranks = getattr(cluster.dataplane, "world", 1)
+        if ranks > 1:
+            raise NotImplementedError(
+                f"ResilientTrainer over a data plane of {ranks} ranks: a step on "
+                "sharded state runs on DTensors, the placement work of ROADMAP "
+                "Queue 1 item 2; train on one rank")
         self.cfg, self.tc = cfg, tc
         self.cluster = cluster
         self.device = resolve_device(cluster.device)
@@ -135,6 +149,10 @@ class ResilientTrainer:
         from repro_torch.mpi import Session
 
         self.session = Session.adopt(cluster)
+        self.pool = DevicePool(n_nodes=cluster.n_initial,
+                               n_spares=cluster.spare_pool.capacity)
+        self.mesh_manager = MeshManager(self.pool, device_type=self.device.type)
+        self.compile_cache = CompileCache()
         self.train_step = make_train_step(cfg, tc)
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         self.params = api.init_params(cfg, gen, self.device)
@@ -142,16 +160,20 @@ class ResilientTrainer:
         self.step = 0
         self.history: list[TrainerReport] = []
         # live state rides the data plane: after every shrink or regrow the
-        # plane re-places it (a no-op while one device holds every node)
+        # plane re-places it (a no-op while one device holds every node).
+        # The getters and setters reach the trainer through a weak
+        # reference, so the cluster keeps none of its tensors alive; once
+        # the trainer is gone its getters read None
+        me = weakref.ref(self)
         self.session.register_sharded_state(
-            "trainer.params", lambda: self.params,
-            lambda p: setattr(self, "params", p))
+            "trainer.params", lambda: _get(me, lambda t: t.params),
+            lambda p: _set(me, lambda t: setattr(t, "params", p)))
         self.session.register_sharded_state(
-            "trainer.opt.mu", lambda: self.opt.mu,
-            lambda mu: setattr(self, "opt", self.opt._replace(mu=mu)))
+            "trainer.opt.mu", lambda: _get(me, lambda t: t.opt.mu),
+            lambda mu: _set(me, lambda t: setattr(t, "opt", t.opt._replace(mu=mu))))
         self.session.register_sharded_state(
-            "trainer.opt.nu", lambda: self.opt.nu,
-            lambda nu: setattr(self, "opt", self.opt._replace(nu=nu)))
+            "trainer.opt.nu", lambda: _get(me, lambda t: t.opt.nu),
+            lambda nu: _set(me, lambda t: setattr(t, "opt", t.opt._replace(nu=nu))))
 
     # -- batch assembly under the current plan --------------------------------------
 
@@ -247,6 +269,18 @@ class ResilientTrainer:
             nu=_retree(self.opt.nu, state["opt"]["nu"]),
         )
         self.step = int(state["meta"]["step"])
+
+
+def _get(ref: weakref.ref, read):
+    """``read(trainer)``, or None once the trainer is gone."""
+    trainer = ref()
+    return None if trainer is None else read(trainer)
+
+
+def _set(ref: weakref.ref, write) -> None:
+    trainer = ref()
+    if trainer is not None:
+        write(trainer)
 
 
 def _retree(template: PyTree, loaded: PyTree) -> PyTree:

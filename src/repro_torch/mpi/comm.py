@@ -365,7 +365,7 @@ class Comm:
             # uniform array payloads ride the data plane (kept on the card
             # by the torch plane; identity on sim) — mixed/object payloads
             # are returned as they came
-            gathered = self.session.cluster.dataplane.gather_arrays(vals)
+            gathered = self.session.cluster.dataplane.gather_arrays(vals, nodes=list(out))
             out = dict(zip(out.keys(), gathered))
         return out
 

@@ -16,11 +16,10 @@ SUBPACKAGES = ("checkpoint", "configs", "core", "data", "dist", "kernels", "mode
 
 # reference names the port does not export yet, by subpackage
 QUEUED = {
-    # the mesh manager and the in-program liveness psum (multi-card)
-    "core": {"CompileCache", "DevicePool", "MeshManager", "liveness_psum"},
-    # placement (dist/sharding.py) and the MoE/enc-dec sharding helpers
-    "dist": {"param_specs", "cache_specs", "batch_specs", "sanitize_spec",
-             "shard_activations", "shard_heads", "gather_fsdp"},
+    # the rest of dist/sharding.py: batch and cache placement and the
+    # activation helpers, with the placement work (ROADMAP Queue 1 item 2)
+    "dist": {"cache_specs", "batch_specs", "shard_activations", "shard_heads",
+             "gather_fsdp"},
     # their counterparts are CUDA entry points with names of their own
     "kernels": {"flash_attention_pallas", "ssd_scan_pallas", "quantize_int8_pallas"},
 }

@@ -1,0 +1,251 @@
+"""Rank programs of tests/test_torch_multirank.py: one process per rank.
+
+    python tests/torch_multirank_ranks.py CASE RANK WORLD WORKDIR
+
+Each rank joins a gloo group through a file rendezvous in WORKDIR (no TCP
+port is fixed; ``world1`` starts through ``init_from_env`` from the
+environment the test sets), reads the inputs from WORKDIR/inputs.npz, runs
+CASE on the CPU and pickles what it saw to WORKDIR/CASE.rankRANK.pkl for
+the test to compare. It imports torch, numpy and the port only; the test
+imports its campaign functions (:func:`campaigns`, :func:`run_campaign`) to
+run the same campaigns through the JAX package's ``Session``.
+"""
+from __future__ import annotations
+
+import pickle
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
+
+from repro_torch.core import FaultInjector, LegioPolicy  # noqa: E402
+from repro_torch.mpi import Session  # noqa: E402
+
+CAMPAIGN_FAULTS = [(2, 9), (4, 0)]          # tests/test_dataplane.py: a member, then a master
+CAMPAIGN_MODES = {
+    "shrink": {"recovery_mode": "shrink"},
+    "substitute": {"recovery_mode": "substitute", "spare_nodes": 2},
+    "overlap": {"recovery_mode": "shrink", "repair_overlap": True},
+}
+STEPS = 7
+ALL_OPS = ("allreduce", "bcast", "reduce", "gather")
+
+
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _result(res) -> dict:
+    return {"stages": list(res.stages), "sim_seconds": res.sim_seconds,
+            "data": {n: _np(v) for n, v in res.data.items()}}
+
+
+def campaigns(inputs: dict) -> dict:
+    """The world-4 campaigns, over 16 nodes in legions of 4 through
+    CAMPAIGN_FAULTS: name -> (policy kwargs, payload(step, node), ops,
+    whether to record the compression residuals)."""
+    def integer_exact(step, m):
+        return (np.arange(8, dtype=np.float32) % 5.0) * (m + 1) - step
+
+    g, g_f32 = inputs["g_int"], inputs["g_f32"]
+    out = {mode: (kw, integer_exact, ALL_OPS, False) for mode, kw in CAMPAIGN_MODES.items()}
+    out["int8"] = ({"grad_compression": "int8"}, lambda step, m: g * np.float32(m % 3 + 1),
+                   ("allreduce",), True)
+    out["f32"] = ({}, lambda step, m: g_f32[(step * 16 + m + 1) % 64], ("allreduce", "reduce"),
+                  False)
+    return out
+
+
+def run_campaign(core, mpi, spec, *, policy_extra=None, session_extra=None) -> list[dict]:
+    """One campaign through ``mpi.Session`` of package ``core``/``mpi`` (the
+    port's or the JAX package's): per step, the topology, what each op
+    returned, the residuals if asked, and the repair rounds so far."""
+    kw, payload, ops, residuals = spec
+    sess = mpi.Session(16, policy=core.LegioPolicy(legion_size=4, **kw, **(policy_extra or {})),
+                       injector=core.FaultInjector.at(list(CAMPAIGN_FAULTS)),
+                       **(session_extra or {}))
+    records = []
+    for step in range(STEPS):
+        sess.advance(step)
+        cl, comm = sess.cluster, sess.world
+        live = [m for m in comm.members if m not in cl.failed]
+        contrib = {m: payload(step, m) for m in live}
+        out = {"step": step, "nodes": list(cl.topo.nodes)}
+        root = sorted(comm.members)[0]
+        for op in ops:
+            if op == "allreduce":
+                out[op] = _result(comm.allreduce(contrib))
+            elif op == "bcast":
+                out[op] = _result(comm.bcast(payload(step, -1), root=root))
+            elif op == "reduce":
+                out[op] = _result(comm.reduce(contrib, root=root))
+            else:
+                out[op] = {n: _np(v) for n, v in comm.gather(contrib).items()}
+        if residuals:
+            out["residuals"] = {m: _np(r) for m, r in cl.compress_residuals.items()}
+        out["repair_rounds"] = comm.stats.repair_rounds
+        records.append(out)
+    return records
+
+
+def case_campaign(rank: int, world: int, inputs: dict) -> dict:
+    """World 4: every campaign on the torch plane over the group, and on the
+    sim plane in the same process; the auto plane; the trainer's refusal."""
+    from repro_torch import core, mpi
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import VirtualCluster
+    from repro_torch.core.trainer import ResilientTrainer
+    from repro_torch.dist.dataplane import TorchDataPlane, make_dataplane
+
+    out = {"campaigns": {
+        name: {plane: run_campaign(core, mpi, spec, policy_extra={"data_plane": plane},
+                                   session_extra={"device": "cpu"})
+               for plane in ("torch", "sim")}
+        for name, spec in campaigns(inputs).items()}}
+    plane = make_dataplane(LegioPolicy(data_plane="auto"), "cpu")
+    out["auto"] = (type(plane).__name__, plane.world, plane.rank)
+    out["plane_is_torch"] = isinstance(plane, TorchDataPlane)
+    cl = VirtualCluster(4, policy=LegioPolicy(legion_size=2), device="cpu")
+    try:
+        ResilientTrainer(get_smoke_config("llama3.2-3b"), TrainConfig(), cl)
+        out["trainer"] = None
+    except NotImplementedError as e:
+        out["trainer"] = str(e)
+    return out
+
+
+def _holder_session(faults, state):
+    sess = Session(8, policy=LegioPolicy(legion_size=4, data_plane="torch"),
+                   injector=FaultInjector.at(faults), device="cpu")
+    holder = {"state": state}
+    sess.register_sharded_state("params", lambda: holder["state"],
+                                lambda s: holder.update(state=s))
+    return sess, holder
+
+
+def _leaves_seen(tree) -> dict:
+    seen = {}
+    for name, leaf in tree.items():
+        seen[name] = {"placements": [repr(p) for p in leaf.placements],
+                      "shape": tuple(leaf.shape), "local": _np(leaf.to_local()),
+                      "coord": leaf.device_mesh.get_coordinate(),
+                      "mesh_ranks": leaf.device_mesh.mesh.tolist()}
+    return seen
+
+
+def _run_steps(sess, steps):
+    cl = sess.cluster
+    for step in range(steps):
+        sess.advance(step)
+        sess.world.allreduce({m: np.ones(4, np.float32) for m in sess.world.members
+                              if m not in cl.failed})
+
+
+def case_reshard(rank: int, world: int, inputs: dict) -> dict:
+    """World 8: tests/test_dataplane.py's reshard case, a second campaign
+    that reshards twice (7 then 6 ranks), and the in-program functions."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.core.agreement import agree_bitmap_inprogram
+    from repro_torch.core.collectives import (
+        hierarchical_psum_scatter,
+        make_hierarchical_allreduce,
+    )
+    from repro_torch.dist.sharding import placements
+
+    out = {}
+    sess, holder = _holder_session([(1, 3)], {k: torch.from_numpy(inputs[k])
+                                             for k in ("wq", "bias")})
+    cl = sess.cluster
+    t0 = cl.clock.sim_seconds
+    _run_steps(sess, 3)
+    out["one"] = {"nodes": list(cl.topo.nodes), "reshards": list(cl.reshards),
+                  "t0": t0, "t1": cl.clock.sim_seconds, "leaves": _leaves_seen(holder["state"]),
+                  "sim_seconds": cl.clock.sim_seconds}
+
+    sess2, holder2 = _holder_session([(1, 3), (3, 5)], {k: torch.from_numpy(inputs[k])
+                                                       for k in ("w_in", "wo", "embed", "norm")})
+    _run_steps(sess2, 5)
+    out["two"] = {"nodes": list(sess2.cluster.topo.nodes), "reshards": list(sess2.cluster.reshards),
+                  "leaves": _leaves_seen(holder2["state"])}
+
+    # the in-program functions on meshes of the eight ranks
+    ranks = torch.arange(world)
+    bitmaps = torch.from_numpy(inputs["bitmaps"])
+    meshes = {"data8": DeviceMesh("cpu", ranks, mesh_dim_names=("data",)),
+              "pod2_data4": DeviceMesh("cpu", ranks.reshape(2, 4), mesh_dim_names=("pod", "data")),
+              "model8": DeviceMesh("cpu", ranks, mesh_dim_names=("model",))}
+    out["agree"] = {name: agree_bitmap_inprogram(m, bitmaps) for name, m in meshes.items()}
+    out["allreduce"] = {}
+    for name, shape, names, spec in (
+            ("pod_data_model", (2, 4, 1), ("pod", "data", "model"), (("pod", "data"),)),
+            ("data_model", (8, 1), ("data", "model"), ("data",))):
+        mesh = DeviceMesh("cpu", ranks.reshape(shape), mesh_dim_names=names)
+        x = distribute_tensor(torch.from_numpy(inputs["x_allreduce"]), mesh,
+                              placements(spec, mesh), src_data_rank=None)
+        out["allreduce"][name] = _np(make_hierarchical_allreduce(mesh, spec)(x).to_local())
+    m24 = meshes["pod2_data4"]
+    pod, data = m24.get_group("pod"), m24.get_group("data")
+    x0 = torch.from_numpy(inputs["x_scatter0"])
+    x1 = torch.from_numpy(inputs["x_scatter1"])
+    r0, r1 = x0.shape[0] // world, x1.shape[0] // world
+    out["psum_scatter"] = {
+        0: _np(hierarchical_psum_scatter(x0[rank * r0:(rank + 1) * r0], pod, data)),
+        1: _np(hierarchical_psum_scatter(x1[rank * r1:(rank + 1) * r1], pod, data,
+                                         scatter_dim=1))}
+    return out
+
+
+def case_world1(rank: int, world: int, inputs: dict) -> dict:
+    """init_from_env("cpu") at world size 1: the int8 campaign through the
+    group's path, then with the group destroyed through the one-rank path."""
+    from repro_torch.dist.dataplane import init_from_env
+
+    def run():
+        sess = Session(16, policy=LegioPolicy(legion_size=4, grad_compression="int8"),
+                       injector=FaultInjector.at(CAMPAIGN_FAULTS), device="cpu")
+        sess.register_sharded_state("x", lambda: {"w_in": torch.ones(4, 4)})
+        results = []
+        for step in range(STEPS):
+            sess.advance(step)
+            contrib = {m: inputs["g_f32"][(step * 16 + m) % 64] for m in sess.world.members
+                       if m not in sess.cluster.failed}
+            results.append(_result(sess.world.allreduce(contrib)))
+        plane = sess.cluster.dataplane
+        return {"distributed": plane.distributed, "world": plane.world,
+                "reshards": list(sess.cluster.reshards), "results": results}
+
+    device = init_from_env("cpu")
+    out = {"device": str(device), "backend": dist.get_backend(), "group": run()}
+    dist.destroy_process_group()
+    out["one"] = run()
+    return out
+
+
+CASES = {"campaign": case_campaign, "reshard": case_reshard, "world1": case_world1}
+
+
+def main(argv: list[str]) -> int:
+    case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
+    torch.set_num_threads(1)
+    inputs = dict(np.load(workdir / "inputs.npz"))
+    if case != "world1":
+        dist.init_process_group("gloo", init_method=f"file://{workdir / f'{case}.rdzv'}",
+                                rank=rank, world_size=world)
+    out = CASES[case](rank, world, inputs)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(workdir / f"{case}.rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
