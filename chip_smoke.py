@@ -6,7 +6,7 @@
     python3 chip_smoke.py --train-only     # phases 1 and 8, then stop
     python3 chip_smoke.py --serve-only     # phases 1-2, 5-6 and 9, then stop
     python3 chip_smoke.py --families-only  # phases 1-2, 3's new flash shapes, 10
-    python3 chip_smoke.py --multirank-only # phases 1 and 11 (builds quantize.cu only)
+    python3 chip_smoke.py --multirank-only # phases 1, 11 and 12 (builds quantize.cu only)
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
@@ -154,7 +154,26 @@ never JAX or the JAX package, and runs, in order:
      c. on the same four ranks, ``agree_bitmap_inprogram`` and
         ``make_hierarchical_allreduce`` over a (pod=2, data=2) mesh, against
         the AND of the bitmaps' rows and the sum of the blocks.
-     A rank that fails, or runs past 600 s, stops every rank and the phase.
+     A rank that fails, or runs past 600 s, stops every rank and the phase;
+ 12. the trainer over ranks (the earlier phases' tensors freed first; no
+     kernel launches: training runs the plain paths):
+     a. NCCL at world size 1: phase 8's llama3.2-3b run (28 layers, 8 nodes
+        in legions of 4, 1 x 1024 a shard, faults (2, 1) and (4, 5)) with the
+        group that ``init_from_env("cuda")`` starts, so the trainer takes its
+        step over the group; every step's loss and grad norm and the final
+        params' fingerprints bit-identical to phase 8's run (under
+        ``--multirank-only``, to a one-rank run made first and freed);
+     b. four ranks on the one card over gloo, each a process of this script
+        (``--train-worker DIR``): the same run at full width cut to 6 of 28
+        layers (the whole state of four ranks fits on one card), params
+        and AdamW moments resharded whole -> 4 ranks at step 2 and 4 -> 3
+        at step 4 (rank 1 then holds no block), every leaf checked against
+        ``param_specs`` after each repair, every rank's reports equal, loss
+        and grad norm within 2e-2 of a one-rank run of the same cut made
+        here first and freed; each step's wall seconds, tokens/s, assemble
+        and gradient all-reduce seconds, each ``ReshardReport`` and each
+        rank's peak memory printed. A rank that fails, or runs past 600 s,
+        stops every rank and the phase.
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
@@ -162,7 +181,8 @@ kernels' JSON record (each kernel's time, bound and share of the bound,
 its launches on every path: each model's continuous serve run under its
 name, the lock-step run under "<name>/lockstep", the train runs', phase
 10's runs under their names, phase 11's as "multirank:nccl1" and
-"multirank:gloo4", summed over the ranks) and ``{"ok": true, "device":
+"multirank:gloo4" and phase 12's as "train:nccl1" and "train:gloo4",
+summed over the ranks) and ``{"ok": true, "device":
 {...}}``; ``--kernels-only``, ``--train-only``, ``--serve-only``,
 ``--families-only`` and ``--multirank-only`` print neither of the last two.
 """
@@ -946,14 +966,11 @@ def multirank_check(records: list[dict]) -> dict:
     return {"flash_attention": 0, "ssd_scan": 0, **launches}
 
 
-def multirank_phase(torch, P, PM, dev, counters) -> dict:
-    """Phase 11: (a) NCCL at world size 1 in this process; (b, c) MR_WORLD
-    ranks on the one card over gloo, each a process of this script with
-    ``--multirank-worker``. A rank that fails or outlives MR_TIMEOUT_S
-    fails the phase (every rank is stopped). Returns the launches by path."""
-    t0 = time.perf_counter()
-    a = nccl_world1(torch, P, PM, dev, counters)
-    out_dir = ROOT / "build" / "multirank"
+def run_ranks(flag: str, out_dir: Path, tag: str) -> list[dict]:
+    """MR_WORLD copies of this script with ``flag out_dir`` and torchrun's
+    variables (gloo on the one card); each rank's log is printed. A rank
+    that fails or outlives MR_TIMEOUT_S stops every rank and raises.
+    Returns each rank's record, ``out_dir/rank<r>.json``."""
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     port = str(free_port())
@@ -963,8 +980,8 @@ def multirank_phase(torch, P, PM, dev, counters) -> dict:
                    MASTER_ADDR="localhost", MASTER_PORT=port)
         env.setdefault("GLOO_SOCKET_IFNAME", "lo")
         log = open(out_dir / f"rank{rank}.log", "w")
-        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                                        "--multirank-worker", str(out_dir)],
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                                        str(out_dir)],
                                        env=env, stdout=log, stderr=subprocess.STDOUT,
                                        cwd=str(ROOT)), log))
     deadline = time.monotonic() + MR_TIMEOUT_S
@@ -983,9 +1000,19 @@ def multirank_phase(torch, P, PM, dev, counters) -> dict:
         print((out_dir / f"rank{rank}.log").read_text().rstrip())
     codes = [p.returncode for p, _ in procs]
     if any(codes):
-        raise AssertionError(f"phase 11b: rank exit codes {codes} (a kill means a rank failed "
+        raise AssertionError(f"phase {tag}: rank exit codes {codes} (a kill means a rank failed "
                              f"first or {MR_TIMEOUT_S} s passed)")
-    records = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(MR_WORLD)]
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(MR_WORLD)]
+
+
+def multirank_phase(torch, P, PM, dev, counters) -> dict:
+    """Phase 11: (a) NCCL at world size 1 in this process; (b, c) MR_WORLD
+    ranks on the one card over gloo, each a process of this script with
+    ``--multirank-worker``. A rank that fails or outlives MR_TIMEOUT_S
+    fails the phase (every rank is stopped). Returns the launches by path."""
+    t0 = time.perf_counter()
+    a = nccl_world1(torch, P, PM, dev, counters)
+    records = run_ranks("--multirank-worker", ROOT / "build" / "multirank", "11b")
     b_launches = multirank_check(records)
     print(f"[11] phase 11 took {time.perf_counter() - t0:.1f} s")
     return {"multirank:nccl1": a["launches"], f"multirank:gloo{MR_WORLD}": b_launches}
@@ -1618,7 +1645,7 @@ def train_profile(torch, trainer, vocab: int) -> dict:
     return out
 
 
-def train_run(torch, P, cfg, dev, *, steps, faults, counters, label):
+def train_run(torch, P, cfg, dev, *, steps, faults, counters, label, tag="8"):
     """``ResilientTrainer`` on ``VirtualCluster(TRAIN_NODES)`` (legions of
     TRAIN_LEGION, per-shard batch 1, sequence TRAIN_SEQ) for ``steps`` steps
     with every kernel's count zeroed just before and read just after. Returns
@@ -1643,7 +1670,7 @@ def train_run(torch, P, cfg, dev, *, steps, faults, counters, label):
         records.append(dict(step=r.step, loss=r.loss, grad_norm=r.grad_norm,
                             shards=r.active_shards, wall_ms=wall * 1e3,
                             tokens_per_s=tokens / wall, repair=r.repair))
-        print(f"[8] {label} step {r.step}: loss {r.loss:.6f} grad_norm {r.grad_norm:.4f} "
+        print(f"[{tag}] {label} step {r.step}: loss {r.loss:.6f} grad_norm {r.grad_norm:.4f} "
               f"shards {r.active_shards} wall_ms {wall * 1e3:.3f} (card synchronised) "
               f"tokens_per_s {tokens / wall:.1f}"
               f"{' REPAIR ' + r.repair.summary() if r.repair else ''}")
@@ -1679,6 +1706,7 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
     trainer, records, launches, peak = train_run(
         torch, P, llama, dev, steps=TRAIN_STEPS, faults=TRAIN_FAULTS, counters=counters,
         label=llama.name)
+    one_rank = run_numbers(torch, trainer, records)     # phase 12a's reference
     n_params = api.count_params(trainer.params)
     repairs = [r["step"] for r in records if r["repair"] is not None]
     print(f"[8] {llama.name} full width ({n_params} params, {llama.n_layers} layers, "
@@ -1711,7 +1739,7 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
                    tokens_per_s=[r["tokens_per_s"] for r in records],
                    loss=[r["loss"] for r in records], peak_bytes=peak,
                    median_fault_free_ms=statistics.median(steady), profile=prof,
-                   launches=launches, **checks)
+                   launches=launches, one_rank=one_rank, **checks)
     del trainer             # its state getters hold it weakly: freed here, no gc.collect
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() - base
@@ -1741,6 +1769,257 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
     return summary
 
 
+# ---- the trainer over ranks (phase 12) ------------------------------------
+# 12b: llama3.2-3b at full width cut to 6 of 28 layers (0.998 B parameters):
+# four ranks on the one card each hold the whole state before the first
+# repair (bf16 params 2.0 GB, fp32 moments 8.0 GB, gradients 2.0 GB, AdamW's
+# fp32 temporaries on the embedding ~6 GB), which 28 layers would not fit
+TR_LAYERS = 6
+TR_REL_TOL = 2e-2                  # 12b loss and grad norm against one rank (bf16)
+TR_MESH_RANKS = {2: [0, 1, 2, 3], 4: [0, 2, 3]}   # the survivors' ranks after each repair
+
+
+def run_numbers(torch, trainer, records) -> dict:
+    """What phase 12 holds a training run to: every step's loss, grad norm
+    and shards, and the final params' fingerprints."""
+    return dict(loss=[r["loss"] for r in records], grad_norm=[r["grad_norm"] for r in records],
+                shards=[r["shards"] for r in records],
+                fingerprints={".".join(path): fingerprint(torch, leaf)
+                              for path, leaf in leaves_of(trainer.params)})
+
+
+def step_lines(tag: str, label: str, records: list[dict]) -> None:
+    """The step wall seconds and tokens/s at each shard count."""
+    by_shards: dict[int, list] = {}
+    for r in records:
+        by_shards.setdefault(r["shards"], []).append(r)
+    for shards, rs in sorted(by_shards.items(), reverse=True):
+        print(f"[{tag}] {label}: {shards} shards ({shards * TRAIN_SEQ} tokens a step): step wall "
+              f"s {[round(r['wall_ms'] / 1e3, 3) for r in rs]} (card synchronised), tokens/s "
+              f"{[round(r['tokens_per_s'], 1) for r in rs]}")
+
+
+def train_nccl1(torch, P, cfg, dev, counters, one=None) -> dict:
+    """Phase 12a: phase 8's training run (``cfg`` at full width and depth
+    through TRAIN_FAULTS) with the group that ``init_from_env("cuda")``
+    starts, NCCL at world size 1, so the trainer takes its step over the
+    group: every step's loss and grad norm, and the final params'
+    fingerprints, bit-identical to the one-rank run ``one`` (phase 8's, or
+    made here first and freed)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import init_from_env
+
+    if one is None:
+        trainer, records, _, _ = train_run(
+            torch, P, cfg, dev, steps=TRAIN_STEPS, faults=TRAIN_FAULTS, counters=counters,
+            label=f"{cfg.name}, one rank, no group", tag="12a")
+        one = run_numbers(torch, trainer, records)
+        del trainer
+        torch.cuda.empty_cache()
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_from_env(dev.type)
+        backend = dist.get_backend()
+        trainer, records, launches, peak = train_run(
+            torch, P, cfg, dev, steps=TRAIN_STEPS, faults=TRAIN_FAULTS, counters=counters,
+            label=f"{cfg.name}, {backend}, one rank", tag="12a")
+        distributed = trainer.distributed
+        group = run_numbers(torch, trainer, records)
+        del trainer
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    step_lines("12a", f"{backend}, one rank", records)
+    same = {k: group[k] == one[k] for k in ("loss", "grad_norm", "shards", "fingerprints")}
+    print(f"[12a] {cfg.name} ({cfg.n_layers} layers) through the step over the group "
+          f"({backend}, one rank): bit-identical to the one-rank run in {json.dumps(same)}; "
+          f"shards {group['shards']}; kernel launches {json.dumps(launches)}; peak memory "
+          f"{peak} B")
+    if not distributed or not all(same.values()) or group["shards"] != TRAIN_SHARDS:
+        raise AssertionError("phase 12a: the step over the group at world size 1 differs from "
+                             "the one-rank step")
+    if any(launches.values()):
+        raise AssertionError(f"training launched a forward-only kernel: {launches}")
+    return dict(backend=backend, launches=launches, peak_bytes=peak,
+                step_s=[r["wall_ms"] / 1e3 for r in records],
+                tokens_per_s=[r["tokens_per_s"] for r in records])
+
+
+def train_worker(torch, dev, cfg, out_path: Path) -> dict:
+    """Phase 12b on one rank of MR_WORLD (started by the parent with
+    torchrun's variables, gloo named): ``cfg`` through TRAIN_FAULTS on 8
+    nodes over the four ranks, with the assemble and the gradient all-reduce
+    of each step timed (card synchronised); after each repair every leaf of
+    params, mu and nu checked against its placement by ``param_specs`` on
+    the survivors' mesh. Writes its record to ``out_path`` and returns it."""
+    import torch.distributed as dist
+
+    import repro_torch.core.trainer as trainer_mod
+    from repro_torch import core as P
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist import init_from_env
+    from repro_torch.dist.sharding import leaf_spec, placements
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models import api
+
+    dev = init_from_env(dev.type, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    tag = f"[12b] gloo, four ranks on one card, rank {rank}"
+    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
+                "absmax": Q.absmax_cuda, "quantize_int8": Q.quantize_int8_cuda}
+    seconds = {"assemble": [], "allreduce": []}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    trainer_mod.assemble_params = timed("assemble", trainer_mod.assemble_params)
+    trainer_mod.allreduce_grads = timed("allreduce", trainer_mod.allreduce_grads)
+    tc = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 10, 1))
+    cluster = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION),
+                               injector=P.FaultInjector.at(TRAIN_FAULTS), device=dev)
+    trainer = P.ResilientTrainer(cfg, tc, cluster, per_shard_batch=1, seq_len=TRAIN_SEQ)
+    plane = cluster.dataplane
+    if not (trainer.distributed and plane.world == world and plane.rank == rank):
+        raise AssertionError(f"{tag}: the trainer did not take the process group")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        marks = {k: len(v) for k, v in seconds.items()}
+        t0 = time.perf_counter()
+        r = trainer.run_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = dict(step=r.step, loss=r.loss, grad_norm=r.grad_norm, shards=r.active_shards,
+                   recompiled=r.recompiled, metrics=r.metrics,
+                   repair=None if r.repair is None else re.sub(r"wall=\S+", "wall=*",
+                                                               r.repair.summary()),
+                   wall_ms=wall * 1e3, tokens_per_s=r.active_shards * TRAIN_SEQ / wall,
+                   **{f"{k}_s": sum(v[marks[k]:]) for k, v in seconds.items()})
+        if r.repair is not None:
+            mesh = plane.mesh_for(cluster.topo.view())
+            wrong, held = [], 0
+            for name, tree in (("params", trainer.params), ("mu", trainer.opt.mu),
+                               ("nu", trainer.opt.nu)):
+                for path, leaf in leaves_of(tree):
+                    want = placements(leaf_spec(path, tuple(leaf.shape), mesh), mesh)
+                    if leaf.device_mesh != mesh or tuple(leaf.placements) != want:
+                        wrong.append(f"{name}.{'.'.join(path)} {leaf.placements}")
+                    local = leaf.to_local()
+                    held += local.numel() * local.element_size()
+            rec.update(placed_wrong=wrong, mesh_ranks=mesh.mesh.flatten().tolist(),
+                       held_bytes=held)
+        steps.append(rec)
+        print(f"{tag} step {r.step}: loss {r.loss:.6f} grad_norm {r.grad_norm:.4f} shards "
+              f"{r.active_shards} wall s {wall:.3f} assemble s {rec['assemble_s']:.3f} "
+              f"gradient all-reduce s {rec['allreduce_s']:.3f}"
+              f"{' REPAIR ' + rec['repair'] if r.repair else ''}", flush=True)
+    record = dict(rank=rank, world=world, backend=dist.get_backend(), steps=steps,
+                  launches=launches_of(torch, counters),
+                  n_params=api.count_params(trainer.params),
+                  reshards=[dict(leaves=x.leaves, n_devices=x.n_devices,
+                                 moved_bytes=x.moved_bytes, wall_seconds=x.wall_seconds,
+                                 mesh_shape=list(x.mesh_shape)) for x in cluster.reshards],
+                  peak_bytes=torch.cuda.max_memory_allocated())
+    del trainer
+    dist.barrier()
+    dist.destroy_process_group()
+    out_path.write_text(json.dumps(record))
+    return record
+
+
+def train_ranks_check(records: list[dict], one: dict) -> dict:
+    """Phase 12b's verdict over every rank's record, against the one-rank
+    run's numbers ``one``. Returns the launches summed over the ranks."""
+    label = "gloo, four ranks on one card"
+    keys = ("step", "loss", "grad_norm", "shards", "recompiled", "repair", "metrics")
+    first = [{k: s[k] for k in keys} for s in records[0]["steps"]]
+    launches = {"flash_attention": 0, "ssd_scan": 0, "absmax": 0, "quantize_int8": 0}
+    for rec in records:
+        tag = f"[12b] {label}, rank {rec['rank']}"
+        for s in rec["steps"]:
+            if "mesh_ranks" in s:
+                print(f"{tag} after the repair at step {s['step']}: mesh ranks "
+                      f"{s['mesh_ranks']}, params + mu + nu held {s['held_bytes']} B, every leaf "
+                      f"placed by param_specs {not s['placed_wrong']} {s['placed_wrong'][:3]}")
+        print(f"{tag}: reshards {json.dumps(rec['reshards'])}; peak memory {rec['peak_bytes']} B; "
+              f"kernel launches {json.dumps(rec['launches'])}")
+        if [{k: s[k] for k in keys} for s in rec["steps"]] != first:
+            raise AssertionError(f"{tag}: its TrainerReports differ from rank 0's")
+        for s in rec["steps"]:
+            if "mesh_ranks" in s and (s["placed_wrong"] or
+                                      s["mesh_ranks"] != TR_MESH_RANKS.get(s["step"])):
+                raise AssertionError(f"{tag} step {s['step']}: placed on {s['mesh_ranks']}, "
+                                     f"wrong leaves {s['placed_wrong'][:5]}")
+        if [r["mesh_shape"] for r in rec["reshards"]] != [[len(r), 1] for r in
+                                                          TR_MESH_RANKS.values()]:
+            raise AssertionError(f"{tag}: reshards {rec['reshards']}")
+        for k in launches:
+            launches[k] += rec["launches"][k]
+    rank1 = next(s for s in records[1]["steps"] if s["step"] == TRAIN_REPAIR_STEPS[-1])
+    print(f"[12b] {label}: rank 1 holds {rank1['held_bytes']} B of params, mu and nu after "
+          f"step {rank1['step']}")
+    steps = records[0]["steps"]
+    for s in steps:
+        print(f"[12b] {label}, step {s['step']}: assemble {s['assemble_s']:.3f} s, gradient "
+              f"all-reduce {s['allreduce_s']:.3f} s (rank 0, card synchronised)")
+    step_lines("12b", f"{label} (rank 0)", steps)
+    rel = {k: max(abs(s[k] - w) / abs(w) for s, w in zip(steps, one[k]))
+           for k in ("loss", "grad_norm")}
+    ok = [s["shards"] for s in steps] == TRAIN_SHARDS == one["shards"] and \
+        [s["step"] for s in steps if s["repair"]] == TRAIN_REPAIR_STEPS and \
+        all(math.isfinite(s["loss"]) for s in steps) and \
+        max(rel.values()) <= TR_REL_TOL and rank1["held_bytes"] == 0
+    print(f"[12b] {label}: every rank's reports equal; shards {[s['shards'] for s in steps]}; "
+          f"loss and grad norm against one rank, worst relative {json.dumps(rel)} (limit "
+          f"{TR_REL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok or any(launches.values()):
+        raise AssertionError(f"phase 12b: the run over the ranks went wrong (launches {launches})")
+    return launches
+
+
+def train_ranks_phase(torch, P, cfg, dev, counters, one=None) -> dict:
+    """Phase 12: (a) ``train_nccl1`` in this process; (b) a one-rank run of
+    ``cfg`` cut to TR_LAYERS layers on the card (freed after), then the same
+    run over MR_WORLD ranks on the one card over gloo, each a process of
+    this script with ``--train-worker``. A rank that fails or outlives
+    MR_TIMEOUT_S fails the phase. Returns the launches by path."""
+    t0 = time.perf_counter()
+    a = train_nccl1(torch, P, cfg, dev, counters, one)
+    cut = cfg.replace(n_layers=TR_LAYERS)
+    trainer, records, _, peak = train_run(
+        torch, P, cut, dev, steps=TRAIN_STEPS, faults=TRAIN_FAULTS, counters=counters,
+        label=f"{cut.name} {TR_LAYERS} of {cfg.n_layers} layers, one rank", tag="12b")
+    one_b = run_numbers(torch, trainer, records)
+    del trainer
+    torch.cuda.empty_cache()
+    step_lines("12b", f"{TR_LAYERS} layers, one rank, no group (peak memory {peak} B)", records)
+    b_launches = train_ranks_check(
+        run_ranks("--train-worker", ROOT / "build" / "train_ranks", "12b"), one_b)
+    print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"train:nccl1": a["launches"], f"train:gloo{MR_WORLD}": b_launches}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -1748,7 +2027,7 @@ def main(argv: list[str]) -> int:
     train_only = "--train-only" in argv      # phases 1 and 8, then stop
     serve_only = "--serve-only" in argv      # phases 1-2, 5-6 and 9, then stop
     families_only = "--families-only" in argv  # phases 1-2, 3's family shapes, 10
-    multirank_only = "--multirank-only" in argv  # phases 1 and 11
+    multirank_only = "--multirank-only" in argv  # phases 1, 11 and 12
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1759,6 +2038,13 @@ def main(argv: list[str]) -> int:
         out_dir = Path(argv[argv.index("--multirank-worker") + 1])
         multirank_worker(torch, torch.device("cuda"), get_config(MR_ARCH), MR_ELEMS,
                          out_dir / f"rank{os.environ['RANK']}.json")
+        return 0
+    if "--train-worker" in argv:       # one rank of phase 12b, started by phase 12
+        from repro_torch.configs.registry import get_config
+
+        out_dir = Path(argv[argv.index("--train-worker") + 1])
+        train_worker(torch, torch.device("cuda"), get_config(MR_ARCH).replace(n_layers=TR_LAYERS),
+                     out_dir / f"rank{os.environ['RANK']}.json")
         return 0
 
     import numpy as np
@@ -1796,6 +2082,9 @@ def main(argv: list[str]) -> int:
         lib_paths = _build.build(["quantize"])
         print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)}")
         mr_launches = multirank_phase(torch, rt_core, rt_mpi, dev, counters)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mr_launches.update(train_ranks_phase(torch, rt_core, train_cfgs[0], dev, counters))
         print(json.dumps({"multirank_only": mr_launches}))
         return 0
     if train_only:
@@ -2104,6 +2393,12 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     path_launches = dict(train_launches)
     path_launches.update(multirank_phase(torch, rt_core, rt_mpi, dev, counters))
+
+    # ---- 12. the trainer over ranks -------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_launches.update(train_ranks_phase(torch, rt_core, train_cfgs[0], dev, counters,
+                                           one=train["one_rank"]))
 
     def entry(name, replaces, shapes):
         """One kernel's record at the serve path (hymba-1.5b, continuous): its

@@ -61,8 +61,12 @@ class LegionCheckpointer:
 
     def save(self, step: int, topo: LegionTopology,
              state_of: Callable[[int], PyTree], *, meta: dict | None = None,
-             sync: bool = False) -> float:
-        """Snapshot every member's shard. Returns blocking seconds."""
+             sync: bool = False, write: bool = True) -> float:
+        """Snapshot every member's shard. Returns blocking seconds.
+
+        ``write=False`` skips the store and only replicates: over ranks
+        every rank calls ``save`` with the same whole state, so the session
+        ledgers stay equal, and rank 0 alone writes the files."""
         shards = self.shard_map_for(topo, state_of)
         meta = dict(meta or {})
         meta.setdefault("k", topo.k)
@@ -71,6 +75,8 @@ class LegionCheckpointer:
             # to each member's POV buddy (in memory, posted through the
             # session ledger; settles at the next boundary)
             self.replicator.push_map(step, topo, shards)
+        if not write:
+            return 0.0
         if self.async_writer is not None and not sync:
             return self.async_writer.save_async(step, shards, meta=meta)
         t0 = time.perf_counter()

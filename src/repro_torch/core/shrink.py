@@ -21,8 +21,9 @@ Repair plan for a failed master (paper Fig. 3):
   6. update the predecessor POV with the new master.
 
 In this framework "shrink" = rebuild the participant set's collective
-topology + reshard + (possibly) recompile (the mesh manager comes with
-the multi-card slice). The engine
+topology + reshard + (possibly) recompile: over a process group the
+torch data plane re-places the registered state (the trainer's params and
+moments) on the survivors' mesh after the repair. The engine
 returns a :class:`RepairReport` carrying both the *model* cost (S(x) sum,
 simulated seconds) and the measured wall-clock of our repair path.
 """

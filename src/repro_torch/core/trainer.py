@@ -16,20 +16,47 @@ restart:
     event, and restart-only-failed brings a replacement back without
     touching survivors.
 
-One device holds the whole step: the global batch is the survivors' shards
-concatenated, as the JAX package's single-program step sees it. The
-trainer runs on its cluster's ``device`` ("cuda" unless the cluster was
-built with ``device="cpu"``; without a card "cuda" raises). It builds a
-device pool, a mesh manager and a compile cache as the JAX package's does;
-its loop never reads them. ``TrainerReport.recompiled`` keeps its meaning:
-the step saw a mesh change (a repair or an expansion).
+On one rank, one device holds the whole step: the global batch is the
+survivors' shards concatenated, as the JAX package's single-program step
+sees it. The trainer runs on its cluster's ``device`` ("cuda" unless the
+cluster was built with ``device="cpu"``; without a card "cuda" raises). It
+builds a device pool, a mesh manager and a compile cache as the JAX
+package's does; its loop never reads them. ``TrainerReport.recompiled``
+keeps its meaning: the step saw a mesh change (a repair or an expansion).
 
-A data plane over more than one rank is refused at construction: with
-sharded state the step would run on DTensors, which is placement work
-still to come (ROADMAP Queue 1 item 2), and gathering the state back to
-each rank would hide that. The registered state getters hold the trainer
-weakly, so a dropped trainer frees its tensors at once, without waiting for
-the cycle collector.
+**Over ranks.** When the cluster's torch data plane spans a process group
+(``TorchDataPlane.distributed``), every rank runs the same control plane
+and calls ``run_step`` together. After each repair the plane has placed
+``params``, ``mu`` and ``nu`` by ``param_specs`` on the survivors'
+``("data", "model")`` mesh (through the setters registered here); before
+the first repair they are plain tensors, whole on every rank. A step:
+
+  1. builds the shards of the live nodes this rank owns (node ``n`` on
+     rank ``n % world``), in sorted shard order;
+  2. assembles the whole parameters from their placed blocks by a byte sum
+     over the mesh's ``data`` group (``sharding.assemble``; DTensor's own
+     redistribution would need an ``all_gather``, which gloo lacks for
+     CUDA tensors), and runs forward and backward on them as plain leaves;
+     the rank's loss is its token mean scaled by its share of the global
+     tokens;
+  3. sums the gradients over that group in fp32 buckets and rounds them
+     once to the parameters' dtype;
+  4. clips by the global norm of the summed gradient (the same on every
+     rank) and runs AdamW on this rank's blocks of params, mu and nu, in
+     place, so the placement stays;
+  5. sums the scalar metrics over the world, so every rank reports the
+     same ``TrainerReport``.
+
+A rank that holds no live node (a fault took all of them) stays outside
+the mesh: it computes nothing but still takes every world-wide collective
+(the reshard and the metrics) in lock-step. At world size 1 the step's
+operations are the one-rank step's, so its numbers are bit-identical.
+MoE configs are refused over more than one rank: their load-balancing
+loss is a mean over the whole batch's routing, not a sum over tokens, so a
+rank's part cannot be scaled into the global one.
+
+The registered state getters hold the trainer weakly, so a dropped trainer
+frees its tensors at once, without waiting for the cycle collector.
 """
 from __future__ import annotations
 
@@ -41,6 +68,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.cr import LegionCheckpointer
@@ -49,6 +77,13 @@ from repro_torch.core.mesh_manager import CompileCache, DevicePool, MeshManager
 from repro_torch.core.types import RepairReport
 from repro_torch.data.pipeline import host_batch_numpy
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (
+    assemble,
+    leaf_spec,
+    local_block,
+    place,
+    tree_map_with_path,
+)
 from repro_torch.models import api
 from repro_torch.optim.adamw import (
     OptState,
@@ -61,6 +96,13 @@ from repro_torch.optim.adamw import (
 )
 
 PyTree = Any
+
+# the scalar metrics of ``api.train_loss`` (every family but MoE), summed
+# over the ranks in this order
+_METRICS = ("accuracy", "loss", "nll", "z_loss")
+# the gradient sum over ranks runs in fp32 buckets of at most this many
+# elements (1 GiB): few calls (gloo's cost is per call), bounded memory
+BUCKET_ELEMS = 1 << 28
 
 
 @dataclass
@@ -128,12 +170,15 @@ class ResilientTrainer:
         seq_len: int = 128,
         checkpointer: LegionCheckpointer | None = None,
     ):
-        ranks = getattr(cluster.dataplane, "world", 1)
-        if ranks > 1:
+        plane = cluster.dataplane
+        # the step over ranks (module docstring) whenever the plane spans a
+        # process group, at world size 1 too
+        self.distributed = bool(getattr(plane, "distributed", False))
+        if self.distributed and plane.world > 1 and cfg.is_moe:
             raise NotImplementedError(
-                f"ResilientTrainer over a data plane of {ranks} ranks: a step on "
-                "sharded state runs on DTensors, the placement work of ROADMAP "
-                "Queue 1 item 2; train on one rank")
+                f"{cfg.name} over {plane.world} ranks: the MoE load-balancing loss is a "
+                "mean over the whole batch's routing and cannot be summed from the "
+                "ranks' parts; train a MoE config on one rank")
         self.cfg, self.tc = cfg, tc
         self.cluster = cluster
         self.device = resolve_device(cluster.device)
@@ -154,6 +199,7 @@ class ResilientTrainer:
         self.mesh_manager = MeshManager(self.pool, device_type=self.device.type)
         self.compile_cache = CompileCache()
         self.train_step = make_train_step(cfg, tc)
+        self.lr_fn = cosine_schedule(tc)
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         self.params = api.init_params(cfg, gen, self.device)
         self.opt = adamw_init(self.params)
@@ -177,19 +223,28 @@ class ResilientTrainer:
 
     # -- batch assembly under the current plan --------------------------------------
 
+    def _batch_of(self, step: int, shards: list[int]) -> dict:
+        """The shards' batches at ``step``, concatenated in the given order."""
+        parts = [host_batch_numpy(self.tc.seed, step, s, batch=self.per_shard_batch,
+                                  seq_len=self.seq_len, vocab_size=self.cfg.vocab_size)
+                 for s in shards]
+        return {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(self.device)
+                for k in parts[0]}
+
     def _global_batch(self, step: int) -> tuple[dict, float]:
         shards = sorted(s for a in self.cluster.plan.assignments for s in a.shards)
         if not shards:
             raise RuntimeError("no surviving shards — cluster exhausted")
-        parts = [host_batch_numpy(self.tc.seed, step, s, batch=self.per_shard_batch,
-                                  seq_len=self.seq_len, vocab_size=self.cfg.vocab_size)
-                 for s in shards]
-        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts])).to(self.device)
-                 for k in parts[0]}
         # mean-over-present-shards is already the renormalised estimator:
         # grad_scale stays 1.0 for DROP (the mean's denominator shrank with
         # the batch); it differs from 1 only for weighted schemes
-        return batch, 1.0
+        return self._batch_of(step, shards), 1.0
+
+    def _rank_shards(self) -> list[int]:
+        """The shards of the live nodes this rank owns, sorted."""
+        plane = self.cluster.dataplane
+        return sorted(s for a in self.cluster.plan.assignments
+                      if plane.owner(a.node) == plane.rank for s in a.shards)
 
     # -- one resilient step -----------------------------------------------------------
 
@@ -202,7 +257,8 @@ class ResilientTrainer:
         # substitutes rejoin before shards are handed out, and ground-truth
         # faults land and drain through the pipeline's INJECTED channel
         # (detect → notice → agree → plan → apply). charge=False: the
-        # trainer's clock is wall time.
+        # trainer's clock is wall time. Over ranks a repair also reshards
+        # params and moments onto the survivors' mesh here.
         boundary = self.session.boundary(step, observe_injected=True, charge=False)
         repair = None
         recompiled = bool(boundary.expansions)
@@ -210,9 +266,13 @@ class ResilientTrainer:
             repair = boundary.actions[0].report
             recompiled = True  # a mesh change
 
-        batch, grad_scale = self._global_batch(step)
-        self.params, self.opt, metrics = self.train_step(
-            self.params, self.opt, batch, grad_scale)
+        if self.distributed:
+            grad_scale = 1.0        # DROP's scale, as _global_batch's
+            metrics = self._group_step(step)
+        else:
+            batch, grad_scale = self._global_batch(step)
+            self.params, self.opt, metrics = self.train_step(
+                self.params, self.opt, batch, grad_scale)
 
         loss = float(metrics["loss"])
         if not math.isfinite(loss):
@@ -220,7 +280,12 @@ class ResilientTrainer:
 
         if self.checkpointer is not None and self.tc.checkpoint_every > 0 \
                 and step > 0 and step % self.tc.checkpoint_every == 0:
-            self.checkpointer.save(step, cl.topo, self._state_of, sync=False)
+            # over ranks every rank assembles the state once (a collective),
+            # pushes the same map to its replicator, and rank 0 writes
+            whole = self._whole_state()
+            self.checkpointer.save(step, cl.topo, lambda n: self._state_of(n, whole),
+                                   sync=False,
+                                   write=not self.distributed or cl.dataplane.rank == 0)
 
         report = TrainerReport(
             step=step,
@@ -237,17 +302,90 @@ class ResilientTrainer:
         self.step += 1
         return report
 
-    def _state_of(self, node: int) -> PyTree:
-        """Member state shard for checkpointing.
+    def _group_step(self, step: int) -> dict:
+        """One step over the process group (module docstring, steps 1-5);
+        returns the metrics summed over the world, with the grad norm."""
+        plane = self.cluster.dataplane
+        active = self.cluster.plan.active_shards
+        if active == 0:
+            raise RuntimeError("no surviving shards — cluster exhausted")
+        shards = self._rank_shards()
+        # every shard has the same token count: the rank's share of the
+        # global tokens, exactly 1.0 when one rank computes every shard
+        share = len(shards) / active
+        mesh = _mesh_of(self.params)
+        member = mesh is None or mesh.get_coordinate() is not None
+        if shards and not member:
+            raise RuntimeError(f"rank {plane.rank} owns shards {shards} but is outside "
+                               "the survivors' mesh")
+        sums = torch.zeros(len(_METRICS) + 1, dtype=torch.float32, device=self.device)
+        if member:
+            group = None if mesh is None else mesh.get_group("data")
+            lowest = 0 if mesh is None else int(mesh.mesh.min())
+            whole = assemble_params(self.params, group)
+            leaves = tree_leaves(whole)
+            if shards:
+                batch = self._batch_of(step, shards)
+                for p in leaves:
+                    p.requires_grad_(True)
+                try:
+                    loss, metrics = api.train_loss(self.cfg, whole, batch)
+                    grads = [g.contiguous() for g in torch.autograd.grad(loss * share, leaves)]
+                finally:
+                    for p in leaves:
+                        p.requires_grad_(False)
+                if set(metrics) != set(_METRICS):
+                    raise ValueError(f"{self.cfg.name}: metrics {sorted(metrics)}, the step "
+                                     f"over ranks sums {list(_METRICS)}")
+                sums[:-1] = torch.stack([metrics[k].detach().float() * share
+                                         for k in _METRICS])
+                del batch, loss, metrics
+            else:
+                grads = [torch.zeros_like(p) for p in leaves]
+            del whole, leaves
+            allreduce_grads(grads, group)
+            grads = _retree_leaves(self.params, iter(grads))
+            with torch.no_grad():
+                gnorm = clip_by_global_norm_(grads, self.tc.grad_clip)
+                local = tree_map(_block_of, grads, self.params)
+                del grads
+                opt = adamw_update_(local, OptState(step=self.opt.step,
+                                                    mu=tree_map(_local, self.opt.mu),
+                                                    nu=tree_map(_local, self.opt.nu)),
+                                    tree_map(_local, self.params), self.tc,
+                                    self.lr_fn(self.opt.step))
+            # the updates went into the placed tensors' blocks in place
+            self.opt = self.opt._replace(step=opt.step)
+            if plane.rank == lowest:     # one rank adds the (common) norm
+                sums[-1] = gnorm
+        else:
+            self.opt = self.opt._replace(step=self.opt.step + 1)
+        dist.all_reduce(sums)
+        out = {k: sums[i] for i, k in enumerate(_METRICS)}
+        out["grad_norm"] = sums[-1]
+        return out
+
+    def _whole_state(self) -> dict:
+        """params, mu and nu as whole tensors; over ranks a collective of the
+        world group (every rank gets every leaf)."""
+        return {name: tree_map(assemble, tree)
+                for name, tree in (("params", self.params), ("mu", self.opt.mu),
+                                   ("nu", self.opt.nu))}
+
+    def _state_of(self, node: int, whole: dict | None = None) -> PyTree:
+        """Member state shard for checkpointing, as whole tensors.
 
         Data-parallel state is replicated, so every member's shard is the
         (params, opt, step) triple plus its shard assignment: a replacement
         node needs nothing from survivors beyond its own file (§VII).
+        ``whole`` is :meth:`_whole_state`'s, taken once per save; without it
+        the state is assembled here (over ranks, a collective).
         """
+        whole = self._whole_state() if whole is None else whole
         shards = list(self.cluster.plan.shards_of(node)) or [-1]
         return {
-            "params": self.params,
-            "opt": {"step": self.opt.step, "mu": self.opt.mu, "nu": self.opt.nu},
+            "params": whole["params"],
+            "opt": {"step": self.opt.step, "mu": whole["mu"], "nu": whole["nu"]},
             "meta": {
                 "step": torch.tensor(self.step, dtype=torch.int32),
                 "shards": torch.tensor(shards, dtype=torch.int32),
@@ -261,6 +399,13 @@ class ResilientTrainer:
 
     def restore_from(self, checkpointer: LegionCheckpointer,
                      legion: int, node: int) -> None:
+        """Load one member's file into this trainer. Over ranks every rank
+        calls it together: rank 0's pending writes finish before any rank
+        reads, and each leaf that is placed now is placed again, by
+        ``param_specs`` on its mesh, from the whole tensor read."""
+        if self.distributed:
+            checkpointer.wait()
+            dist.barrier()
         state = checkpointer.restore_failed_member(legion, node, template=None)
         self.params = _retree(self.params, state["params"])
         self.opt = OptState(
@@ -269,6 +414,64 @@ class ResilientTrainer:
             nu=_retree(self.opt.nu, state["opt"]["nu"]),
         )
         self.step = int(state["meta"]["step"])
+
+
+def assemble_params(params: PyTree, group) -> PyTree:
+    """The whole parameters, each placed leaf assembled over ``group`` (the
+    mesh's ``data`` group, or the world); plain leaves are already whole."""
+    return tree_map(lambda p: assemble(p, group), params)
+
+
+def allreduce_grads(grads: list, group) -> None:
+    """Sum the (contiguous) gradient leaves over ``group`` in place. The
+    leaves, read as one flat stream, go in fp32 buckets of at most
+    BUCKET_ELEMS elements (each leaf upcast exactly), and each sum is
+    rounded once to its leaf's dtype. At world size 1 the values come back
+    unchanged."""
+    total = sum(g.numel() for g in grads)
+    start = 0
+    while start < total:
+        size = min(BUCKET_ELEMS, total - start)
+        bucket = torch.empty(size, dtype=torch.float32, device=grads[0].device)
+        pieces, offset, at = [], 0, 0
+        for g in grads:
+            lo, hi = max(start, offset), min(start + size, offset + g.numel())
+            if lo < hi:
+                pieces.append((g.view(-1)[lo - offset:hi - offset], at))
+                at += hi - lo
+            offset += g.numel()
+        for piece, at in pieces:
+            bucket[at:at + piece.numel()].copy_(piece)
+        dist.all_reduce(bucket, group=group)
+        for piece, at in pieces:
+            piece.copy_(bucket[at:at + piece.numel()])
+        del bucket
+        start += size
+
+
+def _mesh_of(tree: PyTree):
+    """The mesh the state is placed on, or None while it is whole (no
+    repair has resharded it yet)."""
+    from torch.distributed.tensor import DTensor
+
+    leaf = tree_leaves(tree)[0]
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
+def _local(leaf: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``leaf``: the placed tensor's own storage (an
+    update in place lands in the DTensor), or a plain leaf itself."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.to_local() if isinstance(leaf, DTensor) else leaf
+
+
+def _block_of(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """The part of the whole gradient ``grad`` that this rank's block of
+    ``param`` covers."""
+    from torch.distributed.tensor import DTensor
+
+    return grad[local_block(param)] if isinstance(param, DTensor) else grad
 
 
 def _get(ref: weakref.ref, read):
@@ -284,6 +487,18 @@ def _set(ref: weakref.ref, write) -> None:
 
 
 def _retree(template: PyTree, loaded: PyTree) -> PyTree:
-    """``loaded``'s leaves in ``template``'s structure, dtype, shape and device."""
-    return tree_map(lambda t, x: x.to(t.device, t.dtype).reshape(t.shape).contiguous(),
-                    template, loaded)
+    """``loaded``'s leaves in ``template``'s structure, dtype, shape and
+    device; where the template's leaf is placed, placed the same way on its
+    mesh (by ``param_specs``, sliced from the whole: no collective)."""
+    from torch.distributed.tensor import DTensor
+
+    def leaf(path, t):
+        x = loaded
+        for k in path:
+            x = x[k]
+        x = x.to(t.device, t.dtype).reshape(t.shape).contiguous()
+        if isinstance(t, DTensor):
+            return place(x, t.device_mesh, leaf_spec(path, tuple(t.shape), t.device_mesh))
+        return x
+
+    return tree_map_with_path(leaf, template)

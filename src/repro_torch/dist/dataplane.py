@@ -262,9 +262,12 @@ class TorchDataPlane:
         """Re-place every registered leaf on the survivors' mesh by
         ``param_specs`` (``sharding.place``: no scatter) and hand each placed
         tree to its setter; ``None`` on one rank or with nothing registered.
-        The wall time covers the mesh, the placement and a device sync;
-        every rank reports the slowest rank's, so every rank's clock takes
-        the same charge."""
+        A collective of the world group: every rank calls it, one that holds
+        no surviving node too. The trainer's params, mu and nu come back
+        placed, and its next step reads them where they are (see
+        ``core.trainer``). The wall time covers the mesh, the placement and
+        a device sync; every rank reports the slowest rank's, so every
+        rank's clock takes the same charge."""
         if self.world == 1 or not self.registered:
             return None
         t0 = time.perf_counter()

@@ -21,11 +21,13 @@ turns a spec into DTensor placements, one per mesh dim.
 The module also holds the one definition of the survivors' mesh
 (:func:`survivor_grid`) and of placing a leaf on it (:func:`place`), which
 the torch data plane's reshard and ``core.mesh_manager.MeshManager`` both
-call.
+call, and the two reads of a placed leaf that the trainer's step over
+ranks makes: :func:`assemble` (the whole tensor, over a given group) and
+:func:`local_block` (where this rank's block sits in it).
 
 ``batch_specs``, ``cache_specs`` and the activation helpers
-(``shard_activations``, ``shard_heads``, ``gather_fsdp``) come with the
-placement work that runs the model on DTensors.
+(``shard_activations``, ``shard_heads``, ``gather_fsdp``) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -164,21 +166,22 @@ def survivor_grid(survivors, node_ranks: Callable[[int], list[int]]) -> list[lis
     return [list(row) for row in rows]
 
 
-def sum_bytes(buf: torch.Tensor) -> torch.Tensor:
-    """All-reduce ``buf`` in place over the world group, summed as bytes.
-    Where each element was written by one rank into a buffer the others
-    left zero, every rank receives it bit for bit: a byte plus zeros never
-    carries. Works on every backend and device (gloo has no all_gather for
-    CUDA tensors, but an all_reduce)."""
-    dist.all_reduce(buf.view(-1).view(torch.uint8))
+def sum_bytes(buf: torch.Tensor, group=None) -> torch.Tensor:
+    """All-reduce ``buf`` in place over ``group`` (the world group by
+    default), summed as bytes. Where each element was written by one rank
+    into a buffer the others left zero, every rank receives it bit for bit:
+    a byte plus zeros never carries. Works on every backend and device
+    (gloo has no all_gather for CUDA tensors, but an all_reduce)."""
+    dist.all_reduce(buf.view(-1).view(torch.uint8), group=group)
     return buf
 
 
-def _local_block(leaf) -> tuple | None:
-    """The index of this rank's shard of DTensor ``leaf`` in the whole
-    tensor, or None where the rank writes nothing (outside the mesh, or a
-    nonzero coordinate on a replicated mesh dim). Shards are even: the
-    placements come from sanitized specs."""
+def local_block(leaf) -> tuple | None:
+    """The index, in the whole tensor, of the block of DTensor ``leaf`` that
+    this rank holds (``leaf.to_local()``), or None outside the leaf's mesh.
+    A replicated mesh dim leaves the index unchanged: every rank along it
+    holds the same block. Shards are even: the placements come from
+    sanitized specs."""
     from torch.distributed.tensor import Shard
 
     coord = leaf.device_mesh.get_coordinate()
@@ -191,8 +194,6 @@ def _local_block(leaf) -> tuple | None:
         if isinstance(p, Shard):
             index[p.dim] = index[p.dim] * sizes[m] + coord[m]
             count[p.dim] *= sizes[m]
-        elif coord[m] != 0:
-            return None
     block = []
     for d in range(leaf.ndim):
         chunk = leaf.shape[d] // count[d]
@@ -200,23 +201,36 @@ def _local_block(leaf) -> tuple | None:
     return tuple(block)
 
 
-def assemble(leaf: torch.Tensor) -> torch.Tensor:
-    """``leaf`` as one whole tensor on this rank; for a DTensor every rank
-    of the world group calls it together: one rank that holds each element
-    (coordinate 0 on every replicated mesh dim) writes it into a zeroed
-    buffer, and :func:`sum_bytes` carries it to all."""
+def _writes(leaf) -> bool:
+    """Whether this rank writes its block of DTensor ``leaf`` when it is
+    assembled: it is in the mesh, at coordinate 0 on every replicated mesh
+    dim, so each element has exactly one writer."""
+    from torch.distributed.tensor import Shard
+
+    coord = leaf.device_mesh.get_coordinate()
+    return coord is not None and all(
+        isinstance(p, Shard) or c == 0 for p, c in zip(leaf.placements, coord))
+
+
+def assemble(leaf: torch.Tensor, group=None) -> torch.Tensor:
+    """``leaf`` as one whole tensor on this rank. A plain tensor is already
+    whole. For a DTensor every rank of ``group`` (the world group by
+    default; it must hold every rank of the leaf's mesh) calls it together:
+    the one rank that writes each element (:func:`local_block`, coordinate 0
+    on every replicated mesh dim) puts it into a zeroed buffer, and
+    :func:`sum_bytes` carries it to all."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(leaf, DTensor):
         return leaf.detach()
     local = leaf.to_local()
     buf = torch.zeros(leaf.shape, dtype=leaf.dtype, device=local.device)
-    block = _local_block(leaf)
-    if block is not None:
+    if _writes(leaf):
+        block = local_block(leaf)
         if buf[block].shape != local.shape:
             raise ValueError(f"uneven shard {tuple(local.shape)} of {tuple(leaf.shape)}")
         buf[block] = local
-    return sum_bytes(buf)
+    return sum_bytes(buf, group)
 
 
 def place(leaf: torch.Tensor, mesh, spec: Spec):

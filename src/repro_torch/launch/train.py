@@ -12,15 +12,27 @@ The JAX package's driver, flag for flag, plus ``--device`` (the card by
 default; ``--device cpu`` on a machine without one). Without ``--full`` it
 trains the arch's smoke config; ``--full`` trains the published widths and
 depth. ``--json`` prints the same report as the JAX package's driver.
+
+Under torchrun (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set) every rank starts the process group with
+``init_from_env(--device, --backend)`` and the trainer steps over the
+ranks; rank 0 alone prints. ``--backend`` defaults to NCCL on the card and
+gloo on the CPU; name gloo to put several ranks on one card:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+      --backend gloo --steps 6 --nodes 8 --fail 2:1 --json
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+import torch.distributed as dist
+
 from repro_torch.core import (
     RECOVERY_MODES,
     FaultInjector,
@@ -73,8 +85,28 @@ def main(argv: list[str] | None = None) -> int:
                          "tensors on --device, or auto (torch when >1 card is visible)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no GPU and no --device cpu is an error")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="process-group backend under torchrun (default: nccl on "
+                         "cuda, gloo on cpu); gloo lets several ranks share one card")
     ap.add_argument("--json", action="store_true", help="JSON report to stdout")
     args = ap.parse_args(argv)
+
+    device = args.device
+    under_torchrun = all(k in os.environ
+                         for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"))
+    if under_torchrun:
+        from repro_torch.dist import init_from_env
+
+        device = init_from_env(args.device, args.backend)
+    try:
+        return _train(args, device, printing=not under_torchrun or dist.get_rank() == 0)
+    finally:
+        if under_torchrun:
+            dist.destroy_process_group()
+
+
+def _train(args, device, *, printing: bool) -> int:
+    say = print if printing else (lambda *a, **k: None)
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     tc = TrainConfig(
@@ -99,18 +131,18 @@ def main(argv: list[str] | None = None) -> int:
         data_plane=args.data_plane,
     )
     cluster = VirtualCluster(args.nodes, policy=policy, injector=parse_failures(args.fail),
-                             device=args.device)
+                             device=device)
     ckpt = LegionCheckpointer(args.checkpoint_dir) if args.checkpoint_dir else None
     trainer = ResilientTrainer(cfg, tc, cluster, per_shard_batch=args.per_shard_batch,
                                seq_len=args.seq_len, checkpointer=ckpt)
 
-    print(f"[train] arch={cfg.name} nodes={args.nodes} "
-          f"legions(k)={cluster.topo.k} steps={args.steps} device={trainer.device}")
+    say(f"[train] arch={cfg.name} nodes={args.nodes} "
+        f"legions(k)={cluster.topo.k} steps={args.steps} device={trainer.device}")
     try:
         for _ in range(args.steps):
             r = trainer.run_step()
-            print(f"  step {r.step:4d} loss {r.loss:.4f} shards {r.active_shards:3d} "
-                  f"{'REPAIR ' + r.repair.summary() if r.repair else ''}")
+            say(f"  step {r.step:4d} loss {r.loss:.4f} shards {r.active_shards:3d} "
+                f"{'REPAIR ' + r.repair.summary() if r.repair else ''}")
     finally:
         if ckpt is not None:
             ckpt.close()
@@ -126,10 +158,10 @@ def main(argv: list[str] | None = None) -> int:
         "survivors": len(cluster.live_nodes),
         "sim_seconds": cluster.clock.sim_seconds,
     }
-    print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-          f"{report['repairs']} repairs, {report['survivors']} survivors")
+    say(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{report['repairs']} repairs, {report['survivors']} survivors")
     if args.json:
-        print(json.dumps(report))
+        say(json.dumps(report))
     return 0
 
 

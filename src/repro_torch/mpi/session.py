@@ -219,10 +219,12 @@ class Session:
                                setter: Callable[[object], None] | None = None
                                ) -> None:
         """Register live state (a pytree getter/setter pair) for
-        post-repair redistribution (bookkeeping on one card and on the sim
-        plane; resharding over a device mesh comes with the multi-card
-        slice). Facade passthrough to the cluster — applications never
-        touch the data plane directly."""
+        post-repair redistribution: bookkeeping on one rank and on the sim
+        plane; over a process group the torch plane reshards it after every
+        repair onto the survivors' ``DeviceMesh`` by ``param_specs`` (the
+        trainer's params and AdamW moments ride this). Facade passthrough
+        to the cluster — applications never touch the data plane
+        directly."""
         self.cluster.register_sharded_state(name, getter, setter)
 
     # -- fault plumbing shared by every comm ------------------------------------

@@ -297,10 +297,18 @@ def test_control_plane_equal_across_ranks(runs):
                             exact=name in rank_program.CAMPAIGN_MODES)
 
 
-def test_auto_plane_and_trainer_refusal_world4(runs):
+def test_auto_plane_and_trainer_steps_world4(runs):
+    """The auto plane takes the group; the trainer builds and steps over the
+    four ranks (the smoke config, one node a rank), every rank reporting the
+    same finite steps (tests/test_torch_multirank_train.py holds it to the
+    reference)."""
+    first = runs["campaign"][0]["trainer"]["reports"]
+    assert [(r["step"], r["active_shards"]) for r in first] == [(0, 4), (1, 4)]
+    assert all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in first)
     for rank, out in enumerate(runs["campaign"]):
         assert out["auto"] == ("TorchDataPlane", 4, rank)
-        assert out["trainer"] is not None and "Queue 1 item 2" in out["trainer"]
+        assert out["trainer"]["distributed"]
+        assert out["trainer"]["reports"] == first, rank
 
 
 # ---------------------------------------------------------------------------

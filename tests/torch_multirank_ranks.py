@@ -3,12 +3,15 @@
     python tests/torch_multirank_ranks.py CASE RANK WORLD WORKDIR
 
 Each rank joins a gloo group through a file rendezvous in WORKDIR (no TCP
-port is fixed; ``world1`` starts through ``init_from_env`` from the
-environment the test sets), reads the inputs from WORKDIR/inputs.npz, runs
-CASE on the CPU and pickles what it saw to WORKDIR/CASE.rankRANK.pkl for
-the test to compare. It imports torch, numpy and the port only; the test
-imports its campaign functions (:func:`campaigns`, :func:`run_campaign`) to
-run the same campaigns through the JAX package's ``Session``.
+port is fixed; ``world1`` and ``train1`` start through ``init_from_env``
+from the environment the test sets), reads the inputs from
+WORKDIR/inputs.npz, runs CASE on the CPU and pickles what it saw to
+WORKDIR/CASE.rankRANK.pkl for the test to compare. It imports torch, numpy
+and the port only; the tests import its campaign functions
+(:func:`campaigns`, :func:`run_campaign`) to run the same campaigns through
+the JAX package's ``Session``, and its training runs (:data:`TRAIN_RUNS`,
+:func:`drive`, :func:`port_trainer`) to run them through the JAX package's
+trainer and the port's on one rank.
 """
 from __future__ import annotations
 
@@ -94,7 +97,8 @@ def run_campaign(core, mpi, spec, *, policy_extra=None, session_extra=None) -> l
 
 def case_campaign(rank: int, world: int, inputs: dict) -> dict:
     """World 4: every campaign on the torch plane over the group, and on the
-    sim plane in the same process; the auto plane; the trainer's refusal."""
+    sim plane in the same process; the auto plane; the trainer built and
+    stepped over the four ranks."""
     from repro_torch import core, mpi
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_smoke_config
@@ -111,11 +115,10 @@ def case_campaign(rank: int, world: int, inputs: dict) -> dict:
     out["auto"] = (type(plane).__name__, plane.world, plane.rank)
     out["plane_is_torch"] = isinstance(plane, TorchDataPlane)
     cl = VirtualCluster(4, policy=LegioPolicy(legion_size=2), device="cpu")
-    try:
-        ResilientTrainer(get_smoke_config("llama3.2-3b"), TrainConfig(), cl)
-        out["trainer"] = None
-    except NotImplementedError as e:
-        out["trainer"] = str(e)
+    trainer = ResilientTrainer(get_smoke_config("llama3.2-3b"), TrainConfig(), cl,
+                               per_shard_batch=1, seq_len=16)
+    out["trainer"] = {"distributed": trainer.distributed,
+                      "reports": [report_record(trainer.run_step()) for _ in range(2)]}
     return out
 
 
@@ -228,14 +231,199 @@ def case_world1(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
-CASES = {"campaign": case_campaign, "reshard": case_reshard, "world1": case_world1}
+# ---- the trainer over ranks (tests/test_torch_multirank_train.py) ----------
+TRAIN_NODES, TRAIN_LEGION, PER_SHARD_BATCH, SEQ_LEN = 8, 4, 2, 32
+TRAIN_TC = dict(learning_rate=3e-2, total_steps=8, warmup_steps=2, grad_clip=1.0)
+CHECKPOINT_EVERY = 2
+# name -> faults (step, node), policy knobs, steps, and for "checkpoint" the
+# member restored after the steps (legion, node) and the steps run after it.
+# Node n lives on rank n % 4: after (2, 1) and (4, 5) rank 1 holds no node.
+TRAIN_RUNS = {
+    "shrink": dict(faults=[(2, 1), (4, 5)], policy={}, steps=6),
+    "rebalance": dict(faults=[(2, 1), (4, 5)], policy={"batch_policy": "rebalance"}, steps=6),
+    "checkpoint": dict(faults=[(2, 5)], policy={}, steps=5, restore=(0, 1), after=2),
+}
+
+
+def report_record(r) -> dict:
+    """A TrainerReport's fields but its measured seconds (the repair's wall
+    time masked in its summary)."""
+    import re
+
+    return {"step": r.step, "loss": r.loss, "grad_norm": r.grad_norm,
+            "active_shards": r.active_shards, "grad_scale": r.grad_scale,
+            "recompiled": r.recompiled, "metrics": dict(r.metrics),
+            "repair": None if r.repair is None else re.sub(r"wall=\S+", "wall=*",
+                                                            r.repair.summary())}
+
+
+def drive(trainer, spec: dict, ckpt=None, observe=None) -> list:
+    """``spec``'s steps through any package's trainer (``observe(trainer,
+    report)`` after each), then, where the spec says, the restore of one
+    member from ``ckpt`` and the steps after it. Returns the reports."""
+    reports = []
+    for _ in range(spec["steps"]):
+        reports.append(trainer.run_step())
+        if observe is not None:
+            observe(trainer, reports[-1])
+    if "restore" in spec:
+        ckpt.wait()
+        if observe is not None:
+            observe(trainer, "before restore")
+        trainer.restore_from(ckpt, *spec["restore"])
+        if observe is not None:
+            observe(trainer, "restored")
+        for _ in range(spec["after"]):
+            reports.append(trainer.run_step())
+            if observe is not None:
+                observe(trainer, reports[-1])
+    return reports
+
+
+def unflatten(flat: dict, prefix: str) -> dict:
+    """The nested dict of the ``prefix``-ed, "/"-joined keys of ``flat``."""
+    tree: dict = {}
+    for key, value in flat.items():
+        if key.startswith(prefix):
+            *path, leaf = key[len(prefix):].split("/")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = value
+    return tree
+
+
+def port_trainer(cfg, spec: dict, init: dict, plane: str, ckpt=None):
+    """The port's trainer on the CPU for run ``spec``, its weights the
+    reference's ``init`` (a numpy tree) and fresh AdamW moments."""
+    from repro_torch import core as P
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.convert import params_from_reference
+    from repro_torch.optim import adamw_init
+
+    cl = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION,
+                                                            data_plane=plane, **spec["policy"]),
+                          injector=P.FaultInjector.at(spec["faults"]), device="cpu")
+    tc = TrainConfig(**TRAIN_TC, checkpoint_every=CHECKPOINT_EVERY if ckpt else 0)
+    tr = P.ResilientTrainer(cfg, tc, cl, per_shard_batch=PER_SHARD_BATCH, seq_len=SEQ_LEN,
+                            checkpointer=ckpt)
+    tr.params = params_from_reference(cfg, init, device="cpu")
+    tr.opt = adamw_init(tr.params)
+    return tr
+
+
+def _named_leaves(trainer) -> list:
+    """("params/...", "mu/...", "nu/..." path, leaf) of the trainer's state,
+    in one order on every rank."""
+    out = []
+    for name, tree in (("params", trainer.params), ("mu", trainer.opt.mu),
+                       ("nu", trainer.opt.nu)):
+        stack = [((name,), tree)]
+        while stack:
+            path, node = stack.pop(0)
+            if isinstance(node, dict):
+                stack[:0] = [(path + (k,), node[k]) for k in sorted(node)]
+            else:
+                out.append(("/".join(path), node))
+    return out
+
+
+def _state_seen(trainer) -> dict:
+    """Every leaf of params, mu and nu: its placements, local block, mesh
+    coordinate and ranks (``_leaves_seen``'s record) where it is placed,
+    and the whole tensor, assembled over the world (a collective)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import assemble
+
+    seen = {}
+    for name, leaf in _named_leaves(trainer):
+        rec = _leaves_seen({name: leaf})[name] if isinstance(leaf, DTensor) else \
+            {"placements": None, "shape": tuple(leaf.shape)}
+        if "local" in rec:      # copies: the step updates the state in place
+            rec["local"] = rec["local"].copy()
+        rec["whole"] = _np(assemble(leaf)).copy()
+        seen[name] = rec
+    return seen
+
+
+def case_train(rank: int, world: int, inputs: dict) -> dict:
+    """World 4: every TRAIN_RUNS run on the torch plane over the group: each
+    step's report, every leaf's placement after each repair and around the
+    restore, the whole params at each save and at the end, this rank's
+    shards and tokens at the last step."""
+    import json
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import LegionCheckpointer
+
+    workdir = Path(inputs["workdir"].item())
+    cfg = ModelConfig(**json.loads(inputs["fields"].item()))
+    init = unflatten(inputs, "init/")
+    out = {}
+    for name, spec in TRAIN_RUNS.items():
+        ckpt = LegionCheckpointer(str(workdir / f"ckpt_{name}")) if "restore" in spec else None
+        tr = port_trainer(cfg, spec, init, "torch", ckpt)
+        rec = {"distributed": tr.distributed, "after_repair": {}, "saved": {}}
+
+        def observe(trainer, report, rec=rec):
+            if isinstance(report, str):
+                rec[report] = _state_seen(trainer)
+                return
+            if report.repair is not None:
+                rec["after_repair"][report.step] = _state_seen(trainer)
+            if ckpt is not None and report.step > 0 and report.step % CHECKPOINT_EVERY == 0:
+                rec["saved"][report.step] = {k: v["whole"] for k, v in _state_seen(trainer).items()}
+
+        rec["reports"] = [report_record(r) for r in drive(tr, spec, ckpt, observe)]
+        if ckpt is not None:
+            ckpt.close()
+        last = tr.step - 1
+        shards = tr._rank_shards()
+        rec["last_shards"] = shards
+        rec["last_tokens"] = _np(tr._batch_of(last, shards)["tokens"]) if shards else None
+        rec["final"] = {k: v["whole"] for k, v in _state_seen(tr).items() if k.startswith("params")}
+        rec["live_nodes"] = list(tr.cluster.live_nodes)
+        rec["reshards"] = [(r.n_devices, r.mesh_shape, r.leaves) for r in tr.cluster.reshards]
+        out[name] = rec
+    return out
+
+
+def case_train1(rank: int, world: int, inputs: dict) -> dict:
+    """``init_from_env("cpu")`` at world size 1: the "shrink" run through the
+    trainer's step over the group, then with the group destroyed through
+    the one-rank step; each run's reports and final params."""
+    import json
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.dist.dataplane import init_from_env
+
+    cfg = ModelConfig(**json.loads(inputs["fields"].item()))
+    init = unflatten(inputs, "init/")
+
+    def run():
+        tr = port_trainer(cfg, TRAIN_RUNS["shrink"], init, "torch")
+        reports = [report_record(r) for r in drive(tr, TRAIN_RUNS["shrink"])]
+        return {"distributed": tr.distributed, "reports": reports,
+                "final": {k: _np(v).copy() for k, v in _named_leaves(tr)
+                          if k.startswith("params")}}
+
+    device = init_from_env("cpu")
+    out = {"device": str(device), "group": run()}
+    dist.destroy_process_group()
+    out["one"] = run()
+    return out
+
+
+CASES = {"campaign": case_campaign, "reshard": case_reshard, "world1": case_world1,
+         "train": case_train, "train1": case_train1}
 
 
 def main(argv: list[str]) -> int:
     case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
     torch.set_num_threads(1)
-    inputs = dict(np.load(workdir / "inputs.npz"))
-    if case != "world1":
+    inputs = dict(np.load(workdir / "inputs.npz"), workdir=np.asarray(str(workdir)))
+    if case not in ("world1", "train1"):
         dist.init_process_group("gloo", init_method=f"file://{workdir / f'{case}.rdzv'}",
                                 rank=rank, world_size=world)
     out = CASES[case](rank, world, inputs)
