@@ -7,6 +7,7 @@
     python3 chip_smoke.py --serve-only     # phases 1-2, 5-6 and 9, then stop
     python3 chip_smoke.py --families-only  # phases 1-2, 3's new flash shapes, 10
     python3 chip_smoke.py --multirank-only # phases 1, 11 and 12 (builds quantize.cu only)
+    python3 chip_smoke.py --dryrun-only    # phases 1, 2 (flash only) and 13
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
@@ -173,7 +174,35 @@ never JAX or the JAX package, and runs, in order:
         here first and freed; each step's wall seconds, tokens/s, assemble
         and gradient all-reduce seconds, each ``ReshardReport`` and each
         rank's peak memory printed. A rank that fails, or runs past 600 s,
-        stops every rank and the phase.
+        stops every rank and the phase;
+ 13. placement and the dry-run (the earlier phases' tensors freed first):
+     a. full-width llama3.2-3b (28 layers) through ``launch/steps.py``'s
+        three step kinds on the card, inputs materialised from
+        ``input_specs`` (the params by ``init_params``, the rest from a
+        seeded generator): train at B=8, S=1024 with ``remat="full"``
+        (the steps' train step is the trainer's ``make_train_step`` at
+        gradient scale 1), twice, held bit for bit (loss, grad norm, every
+        updated parameter) to the trainer's step called directly on the
+        same weights and batch; prefill at B=4,
+        S=4096 with ``use_pallas`` on and off, each against the fp32 model
+        (phase 4's RMS ratio), flash launching exactly 28 times (counts
+        zeroed just before, read just after); decode of one token at
+        B=8 against a full 32768-token cache (30 GB), its logits finite
+        and shaped, and ``decode_attention`` on layer 0's cache held to
+        an fp32 softmax over the whole cache written out in this script
+        (2 bf16 ulps of the largest output); each step's wall ms and peak
+        memory;
+     b. the dry-run of the same three cells on a (1, 1) mesh of a fake
+        process group of one, in a process of this script
+        (``--dryrun-worker card``, started before 13a, no card): its
+        argument bytes equal to the card's input bytes and to the specs'
+        sum, its peak estimate within 0.5-2.0 of the card's peak;
+     c. the production cells, llama3.2-3b ``train_4k`` and ``decode_32k`` on
+        (16, 16) and (2, 16, 16) over fake groups of 256 and 512 ranks
+        (``--dryrun-worker production``, beside b): per device the argument
+        bytes (checked against the specs' sum), peak bytes, FLOPs and wire
+        bytes, the roofline terms on the H100's datasheet figures, the
+        useful-FLOP ratio and the seconds each took.
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
@@ -181,10 +210,12 @@ kernels' JSON record (each kernel's time, bound and share of the bound,
 its launches on every path: each model's continuous serve run under its
 name, the lock-step run under "<name>/lockstep", the train runs', phase
 10's runs under their names, phase 11's as "multirank:nccl1" and
-"multirank:gloo4" and phase 12's as "train:nccl1" and "train:gloo4",
-summed over the ranks) and ``{"ok": true, "device":
+"multirank:gloo4", phase 12's as "train:nccl1" and "train:gloo4",
+summed over the ranks, and phase 13a's as "steps:train", "steps:prefill"
+and "steps:decode") and ``{"ok": true, "device":
 {...}}``; ``--kernels-only``, ``--train-only``, ``--serve-only``,
-``--families-only`` and ``--multirank-only`` print neither of the last two.
+``--families-only``, ``--multirank-only`` and ``--dryrun-only`` print neither
+of the last two.
 """
 from __future__ import annotations
 
@@ -218,6 +249,7 @@ SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}    # SSD scan (the reference's)
 # the max: the max of many noisy logits is an extreme value that moves from
 # run to run.
 MODEL_RMS_RATIO = 2.0
+DECODE_ATTN_ULPS = 2          # 13a: decode attention vs fp32, bf16 ulps of its largest output
 FIRST_LAUNCH_TIMEOUT_S = 60   # a new kernel's first launch: longer means a hang
 # SHA-256 of make_batch(0, 0, 0, batch=1, seq_len=1024, vocab_size=128256)'s
 # int32 tokens as jax produces them; tests/test_torch_data.py pins it from jax
@@ -2020,6 +2052,308 @@ def train_ranks_phase(torch, P, cfg, dev, counters, one=None) -> dict:
     return {"train:nccl1": a["launches"], f"train:gloo{MR_WORLD}": b_launches}
 
 
+# ---- placement and the dry-run (phase 13) ---------------------------------
+# (a) llama3.2-3b at full width and depth through launch/steps.py's three
+# step kinds on the card; (b) the dry-run of the same cells on a (1, 1)
+# mesh of a fake group of one; (c) the dry-run's production cells. The
+# shapes fit 80 GB: the decode cache is 28 x 2 x 8 heads x 128 x 2 B a
+# token, 30 GB at B = 8 and 32768 tokens.
+DRY_ARCH = "llama3.2-3b"
+DRY_CELLS = (("train", 8, 1024), ("prefill", 4, 4096), ("decode", 8, 32768))  # kind, B, S
+DRY_PEAK_RATIO = (0.5, 2.0)     # the dry-run's peak over the card's, (b)
+DRY_PRODUCTION = ("train_4k", "decode_32k")
+DRY_TIMEOUT_S = 900
+
+
+def dry_cfg():
+    from repro_torch.configs.registry import get_config
+
+    return get_config(DRY_ARCH).replace(remat="full")
+
+
+def dry_shapes():
+    from repro_torch.configs.base import ShapeSpec
+
+    return [ShapeSpec(f"card_{kind}", S, B, kind) for kind, B, S in DRY_CELLS]
+
+
+def dryrun_worker(which: str, out_path: Path) -> None:
+    """Phase 13b ("card") or 13c ("production") in a process of its own,
+    with no card: the dry-run's records, written to ``out_path``."""
+    import logging
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_named_mesh
+
+    # DTensor notes each multi-step redistribution (thousands a cell)
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    recs = {}
+    if which == "card":
+        dryrun.fake_group(1)
+        mesh = make_named_mesh((1, 1), ("data", "model"), device="cpu")
+        for shape in dry_shapes():
+            m = dryrun.dryrun_step(dry_cfg(), shape, mesh)
+            recs[shape.kind] = {"argument_bytes": m["argument_bytes"],
+                                "spec_bytes": m["spec_bytes"], "peak_bytes": m["peak_bytes"],
+                                "flops": m["cost"].flops, "run_s": m["run_s"]}
+    else:
+        for multi_pod in (False, True):
+            for name in DRY_PRODUCTION:
+                rec = dryrun.run_cell(DRY_ARCH, name, multi_pod=multi_pod, verbose=False)
+                recs[f"{name}/{'pod2' if multi_pod else 'pod1'}"] = rec
+    out_path.write_text(json.dumps(recs))
+
+
+def materialize(torch, api, cfg, specs, dev, seed):
+    """``specs``' stand-ins as tensors on the card: the params drawn by
+    ``api.init_params`` (seed 0; every leaf must match its stand-in), the
+    optimizer state zeros as ``adamw_init`` makes it, the rest drawn from a
+    generator seeded ``seed`` (token ids in the vocabulary, bf16 normals)."""
+    from repro_torch.launch import steps
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    for (path, leaf), (_, stand_in) in zip(leaves_of(params), leaves_of(specs["params"])):
+        if leaf.shape != stand_in.shape or leaf.dtype != stand_in.dtype:
+            raise AssertionError(f"13: params leaf {path} {leaf.shape} {leaf.dtype} is not "
+                                 f"its stand-in's {stand_in.shape} {stand_in.dtype}")
+
+    def draw(leaf):
+        if isinstance(leaf, dict):
+            return {k: draw(v) for k, v in leaf.items()}
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if leaf.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, leaf.shape, generator=gen, device=dev,
+                                 dtype=torch.int32)
+        return torch.randn(leaf.shape, generator=gen, device=dev, dtype=leaf.dtype)
+
+    out = {"params": params}
+    for k, v in specs.items():
+        if k == "opt":
+            out[k] = steps.adamw_init(params)
+        elif k != "params":
+            out[k] = draw(v)
+    return out
+
+
+def card_step(torch, fn, args, counters, label):
+    """``fn(**args)`` once on the card, every count zeroed just before and
+    read just after; (outputs, wall ms, the cell's peak bytes, launches).
+    The peak is the allocator's high-water mark less what was held before
+    that is not an input."""
+    from repro_torch.launch import steps
+
+    in_bytes = steps.argument_bytes(args)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - in_bytes
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    t0 = time.perf_counter()
+    with torch.no_grad() if label != "train" else contextlib.nullcontext():
+        out = fn(**args)
+    launches = launches_of(torch, counters)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - held
+    return out, wall_ms, peak, in_bytes, launches
+
+
+def decode_attention_check(torch, cfg, cache, dev) -> tuple[float, float]:
+    """``decode_attention`` of a seeded bf16 query on layer 0's whole cache
+    against the same attention written out in fp32 (the KV heads repeated
+    to the query heads, one softmax over every slot); (max abs error,
+    limit). The limit is DECODE_ATTN_ULPS bf16 units in the last place of
+    the largest output: the kernel rounds its fp32 result to bf16 once."""
+    from repro_torch.models.attention import decode_attention
+
+    k, v = cache["k"][0], cache["v"][0]                  # (B, C, K, hd)
+    B, C, K, hd = k.shape
+    H = cfg.n_heads
+    q = torch.randn((B, 1, H, hd), generator=torch.Generator(device=dev).manual_seed(16),
+                    device=dev, dtype=k.dtype)
+    with torch.no_grad():
+        got = decode_attention(q, k, v, torch.ones((B, C), dtype=torch.bool, device=dev))
+        scores = torch.einsum("bhd,bchd->bhc", q[:, 0].float() / math.sqrt(hd),
+                              k.float().repeat_interleave(H // K, dim=2))
+        want = torch.einsum("bhc,bchd->bhd", torch.softmax(scores, dim=-1),
+                            v.float().repeat_interleave(H // K, dim=2))
+        err = (got[:, 0].float() - want).abs().max().item()
+        limit = DECODE_ATTN_ULPS * 2.0 ** -7 * want.abs().max().item()
+    return err, limit
+
+
+def card_cells(torch, api, dev, counters) -> dict:
+    """13a: the three step kinds at full width on the card, each held to
+    the port's existing path on the same inputs."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.trainer import make_train_step
+    from repro_torch.launch import steps
+
+    cfg = dry_cfg()
+    train_s, prefill_s, decode_s = dry_shapes()
+    tc = TrainConfig()
+    out = {}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # train: steps.train_step against the trainer's step (grad scale 1), each
+    # from the same weights and batch; the steps' step runs again last, warm
+    # (the first step of the process pays the card's one-time set-up)
+    specs = steps.input_specs(cfg, train_s)
+    runs = {}
+    for which in ("steps", "trainer", "steps (warm)"):
+        args = materialize(torch, api, cfg, specs, dev, seed=13)
+        if which.startswith("steps"):
+            fn = steps.step_fn_for(cfg, train_s, tc)
+        else:
+            step = make_train_step(cfg, tc)
+            fn = lambda params, opt, batch: step(params, opt, batch, 1.0)  # noqa: E731
+        (params, opt, metrics), wall_ms, peak, in_bytes, launches = card_step(
+            torch, fn, args, counters, "train")
+        runs[which] = dict(loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
+                           prints=[fingerprint(torch, t) for _, t in leaves_of(params)],
+                           wall_ms=wall_ms, peak=peak, in_bytes=in_bytes, launches=launches)
+        print(f"[13a] train {which} B={train_s.global_batch} S={train_s.seq_len} "
+              f"{cfg.n_layers} layers remat={cfg.remat}: loss {runs[which]['loss']:.6f} "
+              f"grad_norm {runs[which]['grad_norm']:.6f} wall_ms {wall_ms:.3f} peak {peak} B "
+              f"inputs {in_bytes} B launches {launches}")
+        del args, params, opt, metrics
+        fresh()
+    a, b, c = runs["steps"], runs["trainer"], runs["steps (warm)"]
+    same = all(r[k] == b[k] for r in (a, c) for k in ("loss", "grad_norm", "prints"))
+    print(f"[13a] train steps (twice) vs the trainer's step: loss, grad norm and every updated "
+          f"parameter {'bit for bit' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("13a: launch/steps.py's train step differs from the trainer's")
+    out["train"] = {k: v for k, v in c.items() if k != "prints"}
+    out["train"]["first_wall_ms"] = a["wall_ms"]
+
+    # prefill: with the kernels against without, each against the fp32 model
+    specs = steps.input_specs(cfg, prefill_s)
+    args = materialize(torch, api, cfg, specs, dev, seed=14)
+    (lk, _), k_ms, k_peak, in_bytes, launches = card_step(
+        torch, steps.step_fn_for(cfg.replace(use_pallas=True), prefill_s), args, counters,
+        "prefill")
+    fresh()
+    (lp, _), p_ms, p_peak, _, plain_launches = card_step(
+        torch, steps.step_fn_for(cfg, prefill_s), args, counters, "prefill")
+    fresh()
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    with torch.no_grad():
+        lf, _ = steps.step_fn_for(cfg32, prefill_s)(to_float(args["params"]), args["batch"])
+    rms_kernel = (lk - lf).square().mean().sqrt().item()
+    rms_plain = (lp - lf).square().mean().sqrt().item()
+    print(f"[13a] prefill B={prefill_s.global_batch} S={prefill_s.seq_len}: kernels wall_ms "
+          f"{k_ms:.3f} peak {k_peak} B launches {launches}; plain wall_ms {p_ms:.3f} peak "
+          f"{p_peak} B; vs the fp32 model: kernels rms {rms_kernel:.3e}, plain rms "
+          f"{rms_plain:.3e}, ratio {rms_kernel / rms_plain:.3f} (limit {MODEL_RMS_RATIO}); "
+          f"kernels vs plain max {(lk - lp).abs().max().item():.3e}")
+    if not (torch.isfinite(lk).all() and lk.shape == (prefill_s.global_batch, 1,
+                                                       cfg.vocab_size)):
+        raise AssertionError("13a: prefill logits are not finite or misshapen")
+    if rms_kernel > MODEL_RMS_RATIO * rms_plain:
+        raise AssertionError("13a: the steps prefill through the kernels is further from fp32 "
+                             "than rounding explains")
+    if launches["flash_attention"] != cfg.n_layers or any(
+            n for name, n in launches.items() if name != "flash_attention") or any(
+            plain_launches.values()):
+        raise AssertionError(f"13a: steps prefill launches {launches} (plain {plain_launches}); "
+                             f"flash must launch {cfg.n_layers} times, nothing else")
+    out["prefill"] = dict(wall_ms=p_ms, peak=p_peak, in_bytes=in_bytes, kernel_wall_ms=k_ms,
+                          kernel_peak=k_peak, launches=launches, rms_ratio=rms_kernel / rms_plain)
+    del args, lk, lp, lf
+    fresh()
+
+    # decode: one token against a full cache; its logits finite and shaped,
+    # and its attention at this cache (layer 0's, every slot valid, as the
+    # step's mask is at this position) against a softmax over the whole
+    # cache in fp32 written out here
+    specs = steps.input_specs(cfg, decode_s)
+    args = materialize(torch, api, cfg, specs, dev, seed=15)
+    args["cache"]["pos"] = decode_s.seq_len - 1      # every slot but the last written
+    (ls, _), d_ms, d_peak, in_bytes, launches = card_step(
+        torch, steps.step_fn_for(cfg, decode_s), args, counters, "decode")
+    attn_err, attn_limit = decode_attention_check(torch, cfg, args["cache"], dev)
+    print(f"[13a] decode B={decode_s.global_batch} cache {decode_s.seq_len}: wall_ms {d_ms:.3f} "
+          f"peak {d_peak} B inputs {in_bytes} B launches {launches}; logits "
+          f"{tuple(ls.shape)}; decode_attention on layer 0's cache vs an fp32 softmax over it: "
+          f"max_abs_err {attn_err:.3e} (limit {attn_limit:.3e})")
+    if not (torch.isfinite(ls).all() and ls.shape == (decode_s.global_batch, 1,
+                                                       cfg.vocab_size)):
+        raise AssertionError("13a: decode logits are not finite or misshapen")
+    if not attn_err <= attn_limit:
+        raise AssertionError("13a: decode_attention at the full cache disagrees with the "
+                             "fp32 softmax over it")
+    out["decode"] = dict(wall_ms=d_ms, peak=d_peak, in_bytes=in_bytes, launches=launches,
+                         attn_max_abs_err=attn_err)
+    del args, ls
+    fresh()
+    return out
+
+
+def dryrun_phase(torch, api, dev, counters) -> dict:
+    """Phase 13: the dry-run's workers (13b, 13c) start first, on the host's
+    cores, while 13a runs on the card; then each is checked."""
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    procs = {}
+    for which in ("card", "production"):
+        log = open(out_dir / f"{which}.log", "w")
+        procs[which] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker", which,
+             str(out_dir / f"{which}.json")], stdout=log, stderr=subprocess.STDOUT,
+            cwd=str(ROOT)), log, time.perf_counter())
+    try:
+        card = card_cells(torch, api, dev, counters)
+        done = {}
+        for which, (p, log, t0) in procs.items():
+            p.wait(timeout=DRY_TIMEOUT_S)
+            done[which] = time.perf_counter() - t0
+    finally:
+        for p, log, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for which, (p, _, _) in procs.items():
+        if p.returncode:
+            print((out_dir / f"{which}.log").read_text()[-6000:])
+            raise AssertionError(f"13: the {which} dry-run exited {p.returncode}")
+    dry = json.loads((out_dir / "card.json").read_text())
+    for kind, rec in dry.items():
+        cell = card[kind]
+        ratio = rec["peak_bytes"] / cell["peak"]
+        print(f"[13b] dry-run {kind} on a (1, 1) mesh ({rec['run_s']:.1f} s): argument bytes "
+              f"{rec['argument_bytes']} (specs {rec['spec_bytes']}, card {cell['in_bytes']}); "
+              f"peak estimate {rec['peak_bytes']} B vs the card's {cell['peak']} B: ratio "
+              f"{ratio:.3f} (limits {DRY_PEAK_RATIO}); flops {rec['flops']:.4e}")
+        if not rec["argument_bytes"] == rec["spec_bytes"] == cell["in_bytes"]:
+            raise AssertionError(f"13b: {kind} argument bytes differ from the card's inputs")
+        if not DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1]:
+            raise AssertionError(f"13b: {kind} peak estimate {ratio:.3f} of the card's")
+        cell["dryrun"] = rec
+    prod = json.loads((out_dir / "production.json").read_text())
+    for name, rec in prod.items():
+        ma, terms = rec["memory_analysis"], rec["roofline"]
+        print(f"[13c] {name} {rec['mesh']} ({rec['run_s']:.1f} s): argument bytes/dev "
+              f"{ma['argument_bytes']} (specs {ma['spec_argument_bytes']}) peak/dev "
+              f"{ma['peak_bytes_per_device']} flops/dev "
+              f"{rec['cost_analysis']['flops_per_device']:.4e} bytes/dev "
+              f"{rec['cost_analysis']['bytes_accessed_per_device']:.4e} wire/dev "
+              f"{rec['collectives']['total_wire_bytes']} counts {rec['collectives']['counts']}; "
+              f"roofline (H100 SXM datasheet) compute {terms['compute_s'] * 1e3:.3f} ms memory "
+              f"{terms['memory_s'] * 1e3:.3f} ms collective {terms['collective_s'] * 1e3:.3f} ms "
+              f"-> {terms['dominant']}; useful-FLOP ratio {rec['useful_flops_ratio']:.4f}")
+        if ma["argument_bytes"] != ma["spec_argument_bytes"] or not rec["cost_analysis"][
+                "flops_per_device"] > 0:
+            raise AssertionError(f"13c: {name}: argument bytes differ from the specs' sum")
+    print(f"[13] the dry-run workers took {done['card']:.1f} s and {done['production']:.1f} s")
+    return {"card": card, "production": prod}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2028,7 +2362,12 @@ def main(argv: list[str]) -> int:
     serve_only = "--serve-only" in argv      # phases 1-2, 5-6 and 9, then stop
     families_only = "--families-only" in argv  # phases 1-2, 3's family shapes, 10
     multirank_only = "--multirank-only" in argv  # phases 1, 11 and 12
+    dryrun_only = "--dryrun-only" in argv    # phases 1, 2 (flash only) and 13
 
+    if "--dryrun-worker" in argv:      # phase 13b or 13c, started by phase 13; no card
+        i = argv.index("--dryrun-worker")
+        dryrun_worker(argv[i + 1], Path(argv[i + 2]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -2086,6 +2425,12 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         mr_launches.update(train_ranks_phase(torch, rt_core, train_cfgs[0], dev, counters))
         print(json.dumps({"multirank_only": mr_launches}))
+        return 0
+    if dryrun_only:
+        lib_paths = _build.build(["flash_attention"])
+        print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)}")
+        dry = dryrun_phase(torch, api, dev, counters)
+        print(json.dumps({"dryrun_only": dry}, default=str))
         return 0
     if train_only:
         train = train_phase(torch, rt_core, api, train_cfgs, dev, counters)
@@ -2399,6 +2744,14 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     path_launches.update(train_ranks_phase(torch, rt_core, train_cfgs[0], dev, counters,
                                            one=train["one_rank"]))
+
+    # ---- 13. placement and the dry-run -----------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(torch, api, dev, counters)
+    path_launches.update({f"steps:{kind}": cell["launches"]
+                          for kind, cell in dry["card"].items()})
+    print(json.dumps({"dryrun": dry}, default=str))
 
     def entry(name, replaces, shapes):
         """One kernel's record at the serve path (hymba-1.5b, continuous): its

@@ -124,7 +124,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     The JAX package's jitted step: value-and-grad of the scaled loss,
     global-norm clipping, AdamW. Parameters and moments are updated in
     place, leaf by leaf (the JAX step donates them); the same tensors come
-    back.
+    back. The dry-run's train step (``launch.steps.train_step_fn``) is this
+    step at ``grad_scale`` 1 on DTensor leaves.
     """
     lr_fn = cosine_schedule(tc)
 
@@ -134,11 +135,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
             p.requires_grad_(True)
         try:
             loss, metrics = api.train_loss(cfg, params, batch)
-            grads = torch.autograd.grad(loss * grad_scale, leaves)
+            # a leaf the loss does not read (the token embedding of a stub
+            # frontend's batch) gets zeros, as jax.grad gives it
+            grads = torch.autograd.grad(loss * grad_scale, leaves, allow_unused=True,
+                                        materialize_grads=True)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grads = _retree_leaves(params, iter(grads))
+        grads = _retree_leaves(params, iter([_placed_like(g, p) for g, p in zip(grads, leaves)]))
         with torch.no_grad():
             gnorm = clip_by_global_norm_(grads, tc.grad_clip)
             opt = adamw_update_(grads, opt, params, tc, lr_fn(opt.step))
@@ -147,6 +151,16 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return params, opt, metrics
 
     return train_step
+
+
+def _placed_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient re-placed as its parameter (a partial sum is
+    reduce-scattered to the parameter's shards, as in the dry-run); a plain
+    one as is."""
+    placements = getattr(param, "placements", None)
+    if placements is None or tuple(grad.placements) == tuple(placements):
+        return grad
+    return grad.redistribute(param.device_mesh, placements)
 
 
 def _retree_leaves(template: PyTree, leaves) -> PyTree:

@@ -15,6 +15,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(
             f"device {str(dev)!r} requested but no CUDA device is visible; "
             "pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r}: use 'cuda' or 'cpu' "
+                         "('meta' for shape-only stand-ins)")
     return dev

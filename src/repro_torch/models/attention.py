@@ -10,8 +10,11 @@ the naive oracle both are held against.
 Layouts follow the JAX package at every public function: q ``(B, S, H, hd)``,
 k/v ``(B, S, K, hd)``, query head ``h`` reading KV head ``h // (H/K)``.
 
-On one chip the reference's sharding constraints (``shard_heads``) are
-identity maps, so the port leaves them out; ``head_shard`` is not taken.
+Distribution, as the reference's: GQA is computed H-major (K/V repeated to
+the query head count) and q, k and v are constrained to head parallelism
+by ``shard_heads(..., head_shard)``. On DTensors the block loop then runs
+on each device's blocks (``dist.sharding.per_shard``). Off a mesh the
+constraint returns its input and the loop runs as it always has.
 
 Decode attention stays plain PyTorch: the JAX package computes it outside
 any Pallas kernel as well.
@@ -22,6 +25,13 @@ import math
 
 import torch
 
+from repro_torch.dist.sharding import (
+    per_shard,
+    replicated_like,
+    shard_activations,
+    shard_gqa,
+    shard_heads,
+)
 from repro_torch.models.common import softcap as _softcap
 
 NEG_INF = -1e30
@@ -97,6 +107,7 @@ def blocked_attention(
     block_q: int = 512,
     block_k: int = 1024,
     block_skip: bool = True,
+    head_shard: str = "none",
 ) -> torch.Tensor:
     """Flash-attention (online softmax) in tensor ops; O(Sq·block_k) memory.
 
@@ -123,7 +134,23 @@ def blocked_attention(
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
+    q = shard_heads(q, head_shard)
+    k = shard_heads(k, head_shard)
+    v = shard_heads(v, head_shard)
+    out = per_shard(_blocked_loop, (q, k, v), causal=causal, window=window,
+                    logit_softcap=logit_softcap, q_offset=q_offset, block_q=block_q,
+                    block_k=block_k, block_skip=block_skip, Sk_real=Sk_real)
+    if pad_q:
+        out = out[:, :Sq_real]
+    return out
 
+
+def _blocked_loop(q, k, v, *, causal, window, logit_softcap, q_offset, block_q,
+                  block_k, block_skip, Sk_real):
+    """``blocked_attention``'s loop over (padded, head-repeated) q, k, v."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    pad_k = Sk != Sk_real
     dev = q.device
     scale = 1.0 / math.sqrt(hd)
     qf = q.float() * scale                                    # (B, Sq, H, hd)
@@ -169,10 +196,7 @@ def blocked_attention(
         ob = acc / torch.clamp(l_prev[..., None], min=1e-37)  # (B, H, bq, hd)
         out_blocks.append(ob.permute(0, 2, 1, 3))            # (B, bq, H, hd)
 
-    out = torch.cat(out_blocks, dim=1)
-    if pad_q:
-        out = out[:, :Sq_real]
-    return out.to(q.dtype)
+    return torch.cat(out_blocks, dim=1).to(q.dtype)
 
 
 def decode_attention(
@@ -182,12 +206,22 @@ def decode_attention(
     valid_mask: torch.Tensor,    # (B, C) bool — which cache slots hold real keys
     *,
     logit_softcap: float = 0.0,
+    head_shard: str = "none",
 ) -> torch.Tensor:
     """Single-token attention against a (possibly ring-buffer) KV cache.
 
     Grouped: the cache keeps its (K, hd) layout and is never repeated to the
-    query head count.
+    query head count. On DTensors (``head_shard`` on a mesh) the operands
+    are placed alike (``shard_gqa``) and each device attends over its own
+    blocks.
     """
+    q, k_cache, v_cache = shard_gqa(q, k_cache, v_cache, head_shard)
+    valid_mask = shard_activations(replicated_like(valid_mask, q), head_shard)
+    return per_shard(_decode_attn, (q, k_cache, v_cache, valid_mask),
+                     logit_softcap=logit_softcap)
+
+
+def _decode_attn(q, k_cache, v_cache, valid_mask, *, logit_softcap):
     B, _, H, hd = q.shape
     Kh = k_cache.shape[2]
     rep = H // Kh
@@ -219,5 +253,5 @@ def attention(q, k, v, cfg, *, causal=True, window=None, q_offset=0):
         return kops.flash_attention(q, k, v, **kwargs)
     return blocked_attention(
         q, k, v, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
-        block_skip=cfg.causal_block_skip, **kwargs,
+        block_skip=cfg.causal_block_skip, head_shard=cfg.act_shard, **kwargs,
     )

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import argmax_last, take_last
+
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype a config names (``"bfloat16"``, ``"float32"``, ...)."""
@@ -166,8 +168,8 @@ def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, y: torch.Tensor,
     logits = h.float() @ unembed.float().T                            # (B, c, V)
     logits = softcap(logits, logits_softcap)
     lse = torch.logsumexp(logits, dim=-1)                            # (B, c)
-    tgt = torch.gather(logits, -1, y[..., None].long())[..., 0]
-    correct = (torch.argmax(logits, dim=-1) == y).sum()
+    tgt = take_last(logits, y)
+    correct = (argmax_last(logits) == y).sum()
     return torch.sum(lse - tgt), torch.sum(torch.square(lse)), correct
 
 

@@ -16,8 +16,10 @@ all-true mask.
 
 The cache is ``{"pos": int, "k"/"v": (L, B, max_len, K, hd), "cross_k"/
 "cross_v": (L, B, S_enc, K, hd)}``; ``decode_step`` writes the new token's
-K/V into it **in place** and returns the same tensors. On one card the
-reference's sharding constraints are identity maps and are left out.
+K/V into it **in place** and returns the same tensors. As in the
+reference, each encoder and decoder layer of the full sequence gathers its
+FSDP-sharded weights (``gather_fsdp``) and constrains its output
+(``shard_activations``); off a mesh these return their input.
 """
 from __future__ import annotations
 
@@ -27,6 +29,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (
+    gather_fsdp,
+    merge_last,
+    shard_activations,
+    split_last,
+    take_rows,
+)
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import (
     activation_fn,
@@ -96,20 +105,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _self_attn(cfg: ModelConfig, lp: Params, h: torch.Tensor, *, causal: bool):
-    B, S, _ = h.shape
-    q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = split_last(h @ lp["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_last(h @ lp["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_last(h @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
     o = attention(q, k, v, cfg, causal=causal, window=0)
-    return o.reshape(B, S, cfg.q_dim) @ lp["wo"], k, v
+    return merge_last(o) @ lp["wo"], k, v
 
 
 def _cross_attn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                 enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
-    B, S, _ = h.shape
-    q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_last(h @ lp["wq"], cfg.n_heads, cfg.head_dim)
     o = attention(q, enc_k, enc_v, cfg, causal=False, window=0)
-    return o.reshape(B, S, cfg.q_dim) @ lp["wo"]
+    return merge_last(o) @ lp["wo"]
 
 
 def _mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
@@ -119,8 +126,8 @@ def _mlp(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
 def _kv(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor):
     """One decoder layer's cross K/V of the encoder output, (B, S_enc, K, hd) each."""
     B, Se, _ = enc_out.shape
-    k = (enc_out @ lp["wk"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ lp["wv"]).reshape(B, Se, cfg.n_kv_heads, cfg.head_dim)
+    k = split_last(enc_out @ lp["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_last(enc_out @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -130,10 +137,12 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
     S = frames.shape[1]
     x = frames.to(dtype) + sinusoidal_positions(S, cfg.d_model, frames.device).to(dtype)[None]
     for lp in layer_params(params["enc_layers"]):
+        lp = gather_fsdp(lp, cfg.act_shard)
         o, _, _ = _self_attn(cfg, lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps),
                              causal=False)
         x = x + o
         x = x + _mlp(cfg, lp["mlp"], rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
+        x = shard_activations(x, cfg.act_shard)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -145,13 +154,14 @@ def _enc_kv(cfg: ModelConfig, dec_layers: Params, enc_out: torch.Tensor):
 
 def _dec_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, enc_out: torch.Tensor):
     """One decoder block of the full sequence. Returns (x, k, v)."""
+    lp = gather_fsdp(lp, cfg.act_shard)
     o, k, v = _self_attn(cfg, lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps),
                          causal=True)
     x = x + o
     hc = rms_norm(x, lp["cross_norm"], cfg.norm_eps)
     x = x + _cross_attn(cfg, lp["cross"], hc, *_kv(cfg, lp["cross"], enc_out))
     x = x + _mlp(cfg, lp["mlp"], rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
-    return x, k, v
+    return shard_activations(x, cfg.act_shard), k, v
 
 
 def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -161,7 +171,7 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``cfg.remat == "none"`` (or K/V are collected), as the reference's."""
     dtype = torch_dtype(cfg.dtype)
     S = tokens.shape[1]
-    x = params["embed"][tokens].to(dtype)
+    x = take_rows(params["embed"], tokens).to(dtype)
     x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(dtype)[None]
     remat = cfg.remat != "none" and not collect_kv
     ks, vs = [], []
@@ -231,7 +241,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     dtype = torch_dtype(cfg.dtype)
     B = tokens.shape[0]
     pos = cache["pos"]
-    x = params["embed"][tokens].to(dtype)
+    x = take_rows(params["embed"], tokens).to(dtype)
     # sinusoidal position embedding at position `pos`
     ang = torch.tensor(pos, dtype=torch.float32) * sinusoid_inv_freq(cfg.d_model)
     x = x + sinusoid(ang).to(x.device, dtype)[None, None, :]
@@ -243,15 +253,16 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
         k_cache, v_cache = cache["k"][i], cache["v"][i]
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         a = lp["attn"]
-        q = (h @ a["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        q = split_last(h @ a["wq"], cfg.n_heads, cfg.head_dim)
         k_cache[:, pos] = (h @ a["wk"]).reshape(B, cfg.n_kv_heads, cfg.head_dim)
         v_cache[:, pos] = (h @ a["wv"]).reshape(B, cfg.n_kv_heads, cfg.head_dim)
-        o = decode_attention(q, k_cache, v_cache, valid)
-        x = x + o.reshape(B, 1, cfg.q_dim) @ a["wo"]
+        o = decode_attention(q, k_cache, v_cache, valid, head_shard=cfg.act_shard)
+        x = x + merge_last(o) @ a["wo"]
         hc = rms_norm(x, lp["cross_norm"], cfg.norm_eps)
-        qc = (hc @ lp["cross"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-        oc = decode_attention(qc, cache["cross_k"][i], cache["cross_v"][i], valid_c)
-        x = x + oc.reshape(B, 1, cfg.q_dim) @ lp["cross"]["wo"]
+        qc = split_last(hc @ lp["cross"]["wq"], cfg.n_heads, cfg.head_dim)
+        oc = decode_attention(qc, cache["cross_k"][i], cache["cross_v"][i], valid_c,
+                              head_shard=cfg.act_shard)
+        x = x + merge_last(oc) @ lp["cross"]["wo"]
         x = x + _mlp(cfg, lp["mlp"], rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)

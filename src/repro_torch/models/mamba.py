@@ -11,6 +11,10 @@ fp32}``, O(1) in sequence length. ``decode_step`` writes each layer's new
 conv window and state into the cache **in place** and returns the same
 tensors, where the JAX package returns fresh arrays; a caller that needs
 the old cache clones it first.
+
+As in the reference, ``forward_hidden`` gathers each layer's FSDP-sharded
+weights (``gather_fsdp``) and constrains the embeddings and each layer's
+output (``shard_activations``); off a mesh these return their input.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import gather_fsdp, shard_activations, take_rows
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import (
     cross_entropy_chunked,
@@ -62,7 +67,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+    return take_rows(params["embed"], tokens).to(torch_dtype(cfg.dtype))
 
 
 def _logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -71,8 +76,9 @@ def _logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor):
+    lp = gather_fsdp(lp, cfg.act_shard)
     out, cache = ssd_mod.mamba_block(cfg, lp["ssm"], rms_norm(x, lp["norm"], cfg.norm_eps))
-    return x + out, cache
+    return shard_activations(x + out, cfg.act_shard), cache
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -83,7 +89,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     layer runs under ``torch.utils.checkpoint``, as the reference applies
     ``jax.checkpoint`` to its layer body.
     """
-    x = _embed(cfg, params, tokens)
+    x = shard_activations(_embed(cfg, params, tokens), cfg.act_shard)
     remat = cfg.remat != "none" and not collect_state
     caches = []
     for lp in layer_params(params["layers"]):

@@ -25,8 +25,10 @@ and sums them weighted by the gates. The expert FFNs are three batched
 ``einsum``s, as the reference's, which computes them outside any Pallas
 kernel.
 
-On one card the reference's sharding constraints (``shard_activations``,
-``shard_heads``, ``gather_fsdp``) are identity maps and are left out.
+The reference's sharding constraints sit at its call sites: the groups
+and the expert buffers shard their group dim over the data axes
+(``shard_activations``), the expert intermediate its F dim over ``model``
+(``shard_heads``). Off a mesh they return their input.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard_activations, shard_heads
 from repro_torch.models.common import activation_fn, dense_init
 
 
@@ -92,7 +95,8 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
     n = (T + g - 1) // g
     if n * g > T:
         x = F.pad(x, (0, 0, 0, n * g - T))
-    xg = x.reshape(n, g, D)
+    # batched (not looped) groups; the group dim shards over the data axes
+    xg = shard_activations(x.reshape(n, g, D), cfg.act_shard)
     C = _capacity(cfg, g)
     sink = E * C                                   # the per-group sink row
 
@@ -105,6 +109,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
     src = xg[:, :, None, :].expand(n, g, k, D).reshape(n * g * k, D)
     xe = x.new_zeros((n * (sink + 1), D)).index_copy(0, rows, src)
     xe = xe.reshape(n, sink + 1, D)[:, :sink].reshape(n, E, C, D)
+    xe = shard_activations(xe, cfg.act_shard)
 
     # ---- expert FFNs (the only matmuls), batched over groups ----
     act = activation_fn(cfg.activation)
@@ -113,7 +118,8 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
         h = act(torch.einsum("necd,edf->necf", xe, p["we_gate"])) * h
     else:
         h = act(h)
-    ye = torch.einsum("necf,efd->necd", h, p["we_out"])
+    h = shard_heads(h, cfg.act_shard, head_axis=3)                # F tensor-parallel
+    ye = shard_activations(torch.einsum("necf,efd->necd", h, p["we_out"]), cfg.act_shard)
 
     ye_flat = torch.cat([ye.reshape(n, sink, D), ye.new_zeros((n, 1, D))], dim=1)
     y_tk = ye_flat.reshape(n * (sink + 1), D)[rows].reshape(n, g, k, D)

@@ -12,8 +12,10 @@ plain version for CPU tensors).
 
 Shapes: x (B,S,H,P) inputs, dt (B,S,H) timesteps (post-softplus), A (H,)
 negative decay rates, B/C (B,S,G,N) input/output projections (G groups
-broadcast over heads by index). On one chip the reference's sharding
-constraints are identity maps, so ``head_shard`` is not taken.
+broadcast over heads by index). As in the reference, the chunked views are
+constrained to head parallelism (``shard_heads(..., head_shard,
+head_axis=3)``); on DTensors the three steps then run on each device's
+blocks (``dist.sharding.per_shard``), and off a mesh nothing changes.
 
 Parameters and caches keep the reference's layout. ``A_log``, ``dt_bias``
 and ``D`` are fp32 whatever the parameter dtype, as there.
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import merge_last, per_shard, shard_heads, split_last
 from repro_torch.models.common import dense_init, rms_norm
 
 
@@ -112,17 +115,29 @@ def ssd_chunked_reference(
     *,
     chunk: int,
     initial_state: torch.Tensor | None = None,  # (B,H,P,N)
+    head_shard: str = "none",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32). fp32 math.
 
     The three steps of the chunk-parallel form, as the kernel runs them:
     ``chunk_states``, ``state_passing``, ``chunk_output``.
     """
-    xc, dtc, Bh, Ch, lac, cum = chunk_views(x, dt, A, Bm, Cm, chunk=chunk)
+    views = chunk_views(x, dt, A, Bm, Cm, chunk=chunk)
+    # every intra-chunk einsum batches over (B, n, H): pin H to the model axis
+    xc, dtc, Bh, Ch, lac, cum = (shard_heads(t, head_shard, head_axis=3) for t in views)
+    tensors = (xc, dtc, Bh, Ch, lac, cum)
+    if initial_state is not None:
+        # (B,H,P,N): the head dim at 1
+        initial_state = shard_heads(initial_state, head_shard, head_axis=1)
+        tensors += (initial_state,)
+    y, h = per_shard(_chunk_scan, tensors, outs=(None, {0: 0, 3: 1}))
+    return y.reshape(x.shape).to(x.dtype), h
+
+
+def _chunk_scan(xc, dtc, Bh, Ch, lac, cum, initial_state=None):
     states = chunk_states(xc, dtc, Bh, cum)
     h_prevs, h = state_passing(states, cum, initial_state)
-    y = chunk_output(xc, dtc, Bh, Ch, lac, cum, h_prevs)
-    return y.reshape(x.shape).to(x.dtype), h
+    return chunk_output(xc, dtc, Bh, Ch, lac, cum, h_prevs), h
 
 
 def ssd_decode_step(
@@ -255,9 +270,9 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"], hist))
     xs, Bm, Cm = torch.split(xbc, [di, G * N, G * N], dim=-1)
     # strided views into xbc: the kernel reads them in place
-    xs = xs.reshape(B_, S, H, P)
-    Bm = Bm.reshape(B_, S, G, N)
-    Cm = Cm.reshape(B_, S, G, N)
+    xs = split_last(xs, H, P)
+    Bm = split_last(Bm, G, N)
+    Cm = split_last(Cm, G, N)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])               # (B,S,H) fp32
     A = -torch.exp(p["A_log"])
 
@@ -268,9 +283,10 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                    initial_state=init_state)
     else:
         y, h_final = ssd_chunked_reference(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
-                                           initial_state=init_state)
+                                           initial_state=init_state,
+                                           head_shard=cfg.act_shard)
     y = y + xs * p["D"][None, None, :, None].to(y.dtype)
-    y = y.reshape(B_, S, di)
+    y = merge_last(y)
     y = rms_norm(y * F.silu(z), p["ssd_norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     K = cfg.conv_kernel

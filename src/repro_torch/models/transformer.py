@@ -30,9 +30,15 @@ products with no batch dims, ``aten.mm``/``aten.addmm``, recomputing the
 rest, ``bmm`` included (a selective checkpoint, the reference's
 ``dots_with_no_batch_dims_saveable``). ``scan_block = G`` with ``0 < G <
 L`` and ``L % G == 0`` adds an outer checkpoint over each block of G layers
-(unless ``remat="none"``), the reference's two-level layer scan. Settings
-for many devices (``fsdp_gather``, ``act_shard``) are ignored: on one chip
-the reference's sharding constraints are identity maps.
+(unless ``remat="none"``), the reference's two-level layer scan.
+
+The reference's sharding constraints sit at its call sites: ``gather_fsdp``
+of each layer's weights (``fsdp_gather="layer"``) or of the stacked ones
+once (``"step"``), ``shard_activations`` of the embeddings and of each
+layer's output, ``shard_heads`` of the MLP's intermediate, all under
+``cfg.act_shard``. They redistribute DTensors inside a mesh made current
+by ``dist.compat.use_mesh`` (the dry-run's) and return their input itself
+anywhere else, so the one-card paths are unchanged.
 """
 from __future__ import annotations
 
@@ -47,6 +53,14 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (
+    gather_fsdp,
+    merge_last,
+    shard_activations,
+    shard_heads,
+    split_last,
+    take_rows,
+)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.attention import attention, decode_attention
@@ -157,14 +171,13 @@ def unembed_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
 def _attn_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                  positions: torch.Tensor, window: int | None = None):
     """Returns (attn_out (B,S,D), k (B,S,K,hd), v (B,S,K,hd))."""
-    B, S, _ = h.shape
-    q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = split_last(h @ lp["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_last(h @ lp["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_last(h @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, cfg, causal=True, window=window)
-    return o.reshape(B, S, cfg.q_dim) @ lp["wo"], k, v
+    return merge_last(o) @ lp["wo"], k, v
 
 
 def _mlp_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
@@ -173,13 +186,17 @@ def _mlp_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
         mid = act(h @ lp["w_gate"]) * (h @ lp["w_in"])
     else:
         mid = act(h @ lp["w_in"])
+    # (B, S, F) intermediate: F stays tensor-parallel (w_in col-parallel,
+    # w_out row-parallel — the Megatron pattern, one all-reduce per layer)
+    mid = shard_heads(mid, cfg.act_shard)
     return mid @ lp["w_out"]
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
            embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Token embeddings, or the stub frontend's ``embeds`` (B, S, D)."""
-    x = (params["embed"][tokens] if embeds is None else embeds).to(torch_dtype(cfg.dtype))
+    x = (take_rows(params["embed"], tokens) if embeds is None else embeds).to(
+        torch_dtype(cfg.dtype))
     if cfg.scale_embeddings:
         # the scale rounded to the activation dtype first, as the reference
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
@@ -198,6 +215,8 @@ def _ffn(cfg: ModelConfig, lp: Params, h2: torch.Tensor):
 
 def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor):
     """One block. Returns (x, aux (3,), k, v, ssm cache or None)."""
+    if cfg.fsdp_gather == "layer":
+        lp = gather_fsdp(lp, cfg.act_shard)
     hybrid = cfg.family == "hybrid"
     window = cfg.hybrid_attn_window if hybrid else None
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -208,8 +227,11 @@ def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.T
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
+    # the row-parallel output projection leaves a partial sum: finish it here,
+    # where GSPMD does, or DTensor carries it into the MLP and gathers w_in
+    x = shard_activations(x, cfg.act_shard)
     y, aux = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
-    return x + y, aux, k, v, ssm_cache
+    return shard_activations(x + y, cfg.act_shard), aux, k, v, ssm_cache
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -240,10 +262,14 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None
     layer runs under ``cfg.remat`` and ``cfg.scan_block``'s blocks (module
     docstring).
     """
-    x = _embed(cfg, params, tokens, embeds)
+    x = shard_activations(_embed(cfg, params, tokens, embeds), cfg.act_shard)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    layers = layer_params(params["layers"])
+    layers = params["layers"]
+    if cfg.fsdp_gather == "step":
+        # ZeRO-2: gather the whole stacked weight set once per step
+        layers = gather_fsdp(layers, cfg.act_shard)
+    layers = layer_params(layers)
     auxes, ks, vs, ssm = [], [], [], []
     L, G = cfg.n_layers, cfg.scan_block
     if collect_kv:
@@ -331,6 +357,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def _roll_seq(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=2)`` as two slices joined: DTensor has no
+    rule for ``roll`` in every release."""
+    C = x.shape[2]
+    return torch.cat([x[:, :, C - shift:], x[:, :, :C - shift]], dim=2)
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int,
             *, embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Run the full prompt (``embeds`` in place of the tokens' embeddings
@@ -342,8 +375,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int
     if S >= C:
         # ring layout: slot = pos % C. Roll so absolute position p sits at p % C.
         shift = S % C
-        k_cache = torch.roll(k_all[:, :, S - C:], shift, dims=2)
-        v_cache = torch.roll(v_all[:, :, S - C:], shift, dims=2)
+        k_cache = _roll_seq(k_all[:, :, S - C:], shift)
+        v_cache = _roll_seq(v_all[:, :, S - C:], shift)
     else:
         pad = (0, 0, 0, 0, 0, C - S)
         k_cache = torch.nn.functional.pad(k_all, pad)
@@ -365,9 +398,9 @@ def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, lcache: dict,
     k_cache, v_cache = lcache["k"], lcache["v"]
     C = k_cache.shape[1]
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["attn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["attn"]["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["attn"]["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = split_last(h @ lp["attn"]["wq"], cfg.n_heads, cfg.head_dim)
+    k = split_last(h @ lp["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_last(h @ lp["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
     pos_b = torch.full((B, 1), pos, device=x.device)
     q = apply_rope(q, pos_b, cfg.rope_theta)
     k = apply_rope(k, pos_b, cfg.rope_theta)
@@ -375,8 +408,8 @@ def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, lcache: dict,
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
     o = decode_attention(q, k_cache, v_cache, valid,
-                         logit_softcap=cfg.attn_logit_softcap)
-    attn_out = o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
+                         logit_softcap=cfg.attn_logit_softcap, head_shard=cfg.act_shard)
+    attn_out = merge_last(o) @ lp["attn"]["wo"]
     if cfg.family == "hybrid":
         ssm_in = ssd_mod.SSMCache(conv=lcache["conv"], state=lcache["state"])
         ssm_out, ssm_new = ssd_mod.mamba_decode_step(cfg, lp["ssm"], h, ssm_in)

@@ -16,10 +16,6 @@ SUBPACKAGES = ("checkpoint", "configs", "core", "data", "dist", "kernels", "mode
 
 # reference names the port does not export yet, by subpackage
 QUEUED = {
-    # the rest of dist/sharding.py: batch and cache placement and the
-    # activation helpers, with the placement work (ROADMAP Queue 1 item 2)
-    "dist": {"cache_specs", "batch_specs", "shard_activations", "shard_heads",
-             "gather_fsdp"},
     # their counterparts are CUDA entry points with names of their own
     "kernels": {"flash_attention_pallas", "ssd_scan_pallas", "quantize_int8_pallas"},
 }

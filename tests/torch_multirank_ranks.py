@@ -415,8 +415,171 @@ def case_train1(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the placement helpers and the steps on DTensors of real values
+# ---------------------------------------------------------------------------
+
+PLACED_STEPS = (("llama3.2-3b", "train"), ("llama3.2-3b", "prefill"), ("llama3.2-3b", "decode"),
+                ("mamba2-130m", "train"), ("mamba2-130m", "prefill"),
+                ("hymba-1.5b", "decode"))
+
+
+def _placed_step_args(cfg, specs, rng_seed: int) -> dict:
+    """Real values for a step's stand-ins: the params of ``api.init_params``
+    (seed 0), the optimizer state of ``adamw_init``, token ids and small
+    normals from numpy (seed ``rng_seed``), the same on every rank."""
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(rng_seed)
+
+    def fill(leaf):
+        if isinstance(leaf, dict):
+            return {k: fill(v) for k, v in leaf.items()}
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if leaf.dtype == torch.int32:
+            return torch.from_numpy(rng.integers(0, cfg.vocab_size, leaf.shape, dtype=np.int32))
+        return torch.from_numpy(rng.standard_normal(leaf.shape).astype(np.float32)
+                                ).to(leaf.dtype) * 0.1
+
+    args = {k: fill(v) for k, v in specs.items() if k not in ("params", "opt")}
+    args["params"] = params
+    if "opt" in specs:
+        args["opt"] = steps.adamw_init(params)
+    if "cache" in args:
+        args["cache"]["pos"] = specs["cache"]["k"].shape[2] - 2 if "k" in specs["cache"] else 5
+    return args
+
+
+def _whole(tree) -> list:
+    from torch.distributed.tensor import DTensor
+
+    leaves = torch.utils._pytree.tree_leaves(tree)
+    return [(leaf.full_tensor() if isinstance(leaf, DTensor) else leaf).detach().float().numpy()
+            for leaf in leaves if isinstance(leaf, torch.Tensor)]
+
+
+def case_helpers(rank: int, world: int, inputs: dict) -> dict:
+    """On a (2, 2) ``("data", "model")`` mesh of gloo ranks: each vocab- and
+    head-parallel helper of ``dist.sharding`` on DTensors of the inputs'
+    values, and each step of :data:`PLACED_STEPS` (fp32 smoke configs) on
+    inputs placed by ``cell_shardings``. Every entry is (the whole result
+    over the mesh, the plain op's on whole tensors)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import ShapeSpec, TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.compat import make_mesh, use_mesh
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import _zip_map
+    from repro_torch.models.attention import blocked_attention, decode_attention
+    from repro_torch.models.ssd import ssd_chunked_reference
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    t = {k: torch.from_numpy(v) for k, v in inputs.items() if v.dtype.kind in "fiub"}
+
+    def put(name, spec, grad=False):
+        d = distribute_tensor(t[name].clone(), mesh, sharding.placements(spec, mesh),
+                              src_data_rank=None)
+        return d.requires_grad_() if grad else d
+
+    def whole(x):
+        return x.full_tensor().detach().numpy()
+
+    out = {}
+    with use_mesh(mesh), implicit_replication():
+        # vocab-parallel reads of logits: even (16 over 2) and uneven (15:
+        # blocks of 8 and 7); the ties sit across the two blocks
+        for name in ("logits", "logits15"):
+            x = put(name, ("data", None, "model"))
+            y = put("labels15" if name == "logits15" else "labels", ("data",))
+            out[f"take_last/{name}"] = (whole(sharding.take_last(x, y)), torch.gather(
+                t[name], -1, t["labels15" if name == "logits15" else "labels"][..., None].long()
+            )[..., 0].numpy())
+            out[f"argmax_last/{name}"] = (whole(sharding.argmax_last(x)),
+                                          torch.argmax(t[name], dim=-1).numpy())
+        # vocab-parallel lookup, forward and the table's gradient
+        for name in ("table", "table15"):
+            tab = put(name, ("model",), grad=True)
+            ids = put("ids15" if name == "table15" else "ids", ("data",))
+            rows = sharding.take_rows(tab, ids)
+            (rows * t["row_w"]).sum().backward()
+            plain = t[name].clone().requires_grad_()
+            prow = plain[t["ids15" if name == "table15" else "ids"]]
+            (prow * t["row_w"]).sum().backward()
+            out[f"take_rows/{name}"] = (whole(rows), prow.detach().numpy())
+            out[f"take_rows_grad/{name}"] = (whole(tab.grad), plain.grad.numpy())
+        # heads split off a model-parallel last dim: 4 heads split in place,
+        # 3 heads gathered first (3 does not divide 2); the gradient back
+        for heads in (4, 3):
+            x = put("proj", ("data", None, "model"), grad=True)
+            y = sharding.split_last(x, heads, 12 // heads)
+            (y * t["proj_w"].reshape(y.shape)).sum().backward()
+            px = t["proj"].clone().requires_grad_()
+            py = px.reshape(*px.shape[:-1], heads, 12 // heads)
+            (py * t["proj_w"].reshape(py.shape)).sum().backward()
+            out[f"split_last/{heads}"] = (whole(y), py.detach().numpy())
+            out[f"split_last_grad/{heads}"] = (whole(x.grad), px.grad.numpy())
+        # heads merged back (the attention output), its gradient split
+        o = put("heads_out", ("data", None, "model"), grad=True)
+        z = sharding.merge_last(o) @ t["merge_w"]
+        z.sum().backward()
+        po = t["heads_out"].clone().requires_grad_()
+        pz = po.reshape(*po.shape[:-2], -1) @ t["merge_w"]
+        pz.sum().backward()
+        out["merge_last"] = (whole(z), pz.detach().numpy())
+        out["merge_last_grad"] = (whole(o.grad), po.grad.numpy())
+        # per_shard: attention and the SSD scan on each device's blocks
+        q, k, v = (put(n, ("data",)) for n in ("q", "k", "v"))
+        out["blocked_attention"] = (
+            whole(blocked_attention(q, k, v, causal=True, block_q=4, block_k=4,
+                                    head_shard="batch")),
+            blocked_attention(t["q"], t["k"], t["v"], causal=True, block_q=4,
+                              block_k=4).numpy())
+        dq, kc, vc = (put(n, ("data",)) for n in ("dq", "kc", "vc"))
+        valid = t["valid"]
+        out["decode_attention"] = (
+            whole(decode_attention(dq, kc, vc, valid, head_shard="batch")),
+            decode_attention(t["dq"], t["kc"], t["vc"], valid).numpy())
+        names = ("ssd_x", "ssd_dt", "ssd_A", "ssd_B", "ssd_C")
+        ssd_in = [put(n, ("data",) if n != "ssd_A" else ()) for n in names]
+        h0 = put("ssd_h0", ("data",))
+        y, h = ssd_chunked_reference(*ssd_in, chunk=4, initial_state=h0, head_shard="batch")
+        py, ph = ssd_chunked_reference(*(t[n] for n in names), chunk=4,
+                                       initial_state=t["ssd_h0"])
+        out["ssd/y"] = (whole(y), py.numpy())
+        out["ssd/state"] = (whole(h), ph.numpy())
+        # the state (B, H, P, N): batch over data, heads (x's dim 3) at dim 1
+        out["ssd/state_heads_dim"] = (
+            np.asarray([p.dim if isinstance(p, Shard) else -1 for p in h.placements]),
+            np.asarray([0, 1]))
+
+    # the steps on inputs placed by cell_shardings, against the plain steps
+    for arch, kind in PLACED_STEPS:
+        cfg = get_smoke_config(arch).replace(n_layers=2, dtype="float32",
+                                             param_dtype="float32")
+        shape = ShapeSpec(kind, 16, 4, kind)
+        specs = steps.input_specs(cfg, shape)
+        in_sh, _ = steps.cell_shardings(cfg, shape, mesh, specs)
+        fn = steps.step_fn_for(cfg, shape, TrainConfig())
+        plain = _whole(fn(**_placed_step_args(cfg, specs, 11)))
+        args = _placed_step_args(cfg, specs, 11)
+        placed = {k: _zip_map(lambda leaf, sh: distribute_tensor(
+            leaf, mesh, sh.placements, src_data_rank=None)
+            if isinstance(leaf, torch.Tensor) else leaf, v, in_sh[k]) for k, v in args.items()}
+        with use_mesh(mesh), implicit_replication():
+            got = _whole(fn(**placed))
+        out[f"step/{arch}/{kind}"] = (got, plain)
+    return out
+
+
 CASES = {"campaign": case_campaign, "reshard": case_reshard, "world1": case_world1,
-         "train": case_train, "train1": case_train1}
+         "train": case_train, "train1": case_train1,
+         "helpers": case_helpers}
 
 
 def main(argv: list[str]) -> int:
