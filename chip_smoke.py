@@ -8,6 +8,7 @@
     python3 chip_smoke.py --families-only  # phases 1-2, 3's new flash shapes, 10
     python3 chip_smoke.py --multirank-only # phases 1, 11 and 12 (builds quantize.cu only)
     python3 chip_smoke.py --dryrun-only    # phases 1, 2 (flash only) and 13
+    python3 chip_smoke.py --examples-only  # phases 1, 2 (flash only) and 14
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
@@ -174,7 +175,13 @@ never JAX or the JAX package, and runs, in order:
         here first and freed; each step's wall seconds, tokens/s, assemble
         and gradient all-reduce seconds, each ``ReshardReport`` and each
         rank's peak memory printed. A rank that fails, or runs past 600 s,
-        stops every rank and the phase;
+        stops every rank and the phase; then the MoE configs over the same
+        four ranks (``--moe-worker DIR``): mixtral-8x22b's and
+        grok-1-314b's smoke configs in f32 (their routing group, 64 tokens,
+        is a shard's 2 x 32), 8 nodes, three steps through fault (1, 1),
+        every rank's shards and repairs equal to the same runs with NCCL at
+        world size 1 in this process and its loss and grad norm within
+        1e-5 (full width does not fit four ranks on one card);
  13. placement and the dry-run (the earlier phases' tensors freed first):
      a. full-width llama3.2-3b (28 layers) through ``launch/steps.py``'s
         three step kinds on the card, inputs materialised from
@@ -196,13 +203,33 @@ never JAX or the JAX package, and runs, in order:
         process group of one, in a process of this script
         (``--dryrun-worker card``, started before 13a, no card): its
         argument bytes equal to the card's input bytes and to the specs'
-        sum, its peak estimate within 0.5-2.0 of the card's peak;
+        sum, its peak estimate within 0.5-2.0 of the card's peak; then
+        ``launch/kernel_roofline.report`` of the prefill cell: the
+        attention-interior bytes (which must lie strictly between 0 and the
+        step's bytes), their share, and the memory terms of the blocked
+        path and of the flash kernel on the H100's datasheet figures,
+        printed beside 13a's measured plain and kernel prefill times;
      c. the production cells, llama3.2-3b ``train_4k`` and ``decode_32k`` on
         (16, 16) and (2, 16, 16) over fake groups of 256 and 512 ranks
         (``--dryrun-worker production``, beside b): per device the argument
         bytes (checked against the specs' sum), peak bytes, FLOPs and wire
         bytes, the roofline terms on the H100's datasheet figures, the
-        useful-FLOP ratio and the seconds each took.
+        useful-FLOP ratio and the seconds each took; beside them, in a third
+        worker (``--dryrun-worker repaired``), the decode cells DTensor once
+        could not view, at full depth: mixtral-8x22b and grok-1-314b
+        ``decode_32k`` on (2, 16, 16), whisper-tiny ``decode_32k`` on both
+        meshes, each completing with its argument bytes equal to the
+        specs' sum;
+ 14. the examples: each ``examples_torch/*.py`` in a process of its own on
+     the card (their default device), three at a time, at its reference's
+     default arguments or the CI form the reference documents
+     (``resilient_training.py --tiny``; ``chaos_campaign.py --preset
+     rack_outage --preset transient_flap --recovery substitute``), each
+     with a 300 s limit of its own, run by this script
+     (``--example-worker``), which zeroes every kernel count just before
+     the twin starts and reads them when it ends; each must exit 0, and its
+     wall seconds, launches and last lines are printed (logs in
+     ``build/examples/``).
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
@@ -211,11 +238,13 @@ its launches on every path: each model's continuous serve run under its
 name, the lock-step run under "<name>/lockstep", the train runs', phase
 10's runs under their names, phase 11's as "multirank:nccl1" and
 "multirank:gloo4", phase 12's as "train:nccl1" and "train:gloo4",
-summed over the ranks, and phase 13a's as "steps:train", "steps:prefill"
-and "steps:decode") and ``{"ok": true, "device":
-{...}}``; ``--kernels-only``, ``--train-only``, ``--serve-only``,
-``--families-only``, ``--multirank-only`` and ``--dryrun-only`` print neither
-of the last two.
+summed over the ranks, 12b's MoE runs as "train:moe-nccl1" and
+"train:moe-gloo4", summed over the ranks, phase 13a's as "steps:train",
+"steps:prefill" and "steps:decode", and each twin of phase 14 as
+"examples:<name>") and ``{"ok":
+true, "device": {...}}``; ``--kernels-only``, ``--train-only``,
+``--serve-only``, ``--families-only``, ``--multirank-only``,
+``--dryrun-only`` and ``--examples-only`` print neither of the last two.
 """
 from __future__ import annotations
 
@@ -741,6 +770,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def world1_group(dev):
+    """The process group that ``init_from_env(dev.type)`` starts at world
+    size 1 (NCCL on the card), torchrun's variables set for it and put back
+    after; yields the backend's name."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import init_from_env
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        init_from_env(dev.type)
+        yield dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def mr_payload(torch, dev, node, step, n):
     """Node ``node``'s payload at ``step``: small integers in f32, whose sums
     are exact in any order."""
@@ -776,18 +831,8 @@ def nccl_world1(torch, P, PM, dev, counters) -> dict:
     with the process group started by ``init_from_env`` (NCCL on the card)
     at world size 1, which runs the plane's group path: byte-equal results,
     stages and clock; the kernels counted over the group's run."""
-    import torch.distributed as dist
-
-    from repro_torch.dist import init_from_env
-
     _, one = runtime_run(torch, P, PM, dev, GRAD_ELEMS, "torch")
-    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
-               MASTER_PORT=str(free_port()))
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        init_from_env(dev.type)
-        backend = dist.get_backend()
+    with world1_group(dev) as backend:
         zero(counters)
         sess, group = runtime_run(torch, P, PM, dev, GRAD_ELEMS, "torch")
         launches = launches_of(torch, counters)
@@ -795,14 +840,6 @@ def nccl_world1(torch, P, PM, dev, counters) -> dict:
         if not (plane.distributed and plane.world == 1) or sess.cluster.reshards:
             raise AssertionError("the plane did not take the process group's path")
         del sess
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     same = [torch.equal(a["out"].view(torch.int32), b["out"].view(torch.int32))
             and a["stages"] == b["stages"] and a["sim_seconds"] == b["sim_seconds"]
             for a, b in zip(one, group)]
@@ -1838,10 +1875,6 @@ def train_nccl1(torch, P, cfg, dev, counters, one=None) -> dict:
     group: every step's loss and grad norm, and the final params'
     fingerprints, bit-identical to the one-rank run ``one`` (phase 8's, or
     made here first and freed)."""
-    import torch.distributed as dist
-
-    from repro_torch.dist import init_from_env
-
     if one is None:
         trainer, records, _, _ = train_run(
             torch, P, cfg, dev, steps=TRAIN_STEPS, faults=TRAIN_FAULTS, counters=counters,
@@ -1849,27 +1882,13 @@ def train_nccl1(torch, P, cfg, dev, counters, one=None) -> dict:
         one = run_numbers(torch, trainer, records)
         del trainer
         torch.cuda.empty_cache()
-    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
-               MASTER_PORT=str(free_port()))
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        init_from_env(dev.type)
-        backend = dist.get_backend()
+    with world1_group(dev) as backend:
         trainer, records, launches, peak = train_run(
             torch, P, cfg, dev, steps=TRAIN_STEPS, faults=TRAIN_FAULTS, counters=counters,
             label=f"{cfg.name}, {backend}, one rank", tag="12a")
         distributed = trainer.distributed
         group = run_numbers(torch, trainer, records)
         del trainer
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     torch.cuda.empty_cache()
     step_lines("12a", f"{backend}, one rank", records)
     same = {k: group[k] == one[k] for k in ("loss", "grad_norm", "shards", "fingerprints")}
@@ -2030,6 +2049,118 @@ def train_ranks_check(records: list[dict], one: dict) -> dict:
     return launches
 
 
+# 12b's MoE runs: mixtral-8x22b's and grok-1-314b's smoke configs in f32 on
+# 8 nodes, three steps through one fault. Their routing group (64 tokens) is
+# a shard's 2 x 32 tokens, which is what lets the trainer sum the MoE losses
+# over ranks. Full width does not fit: one mixtral layer alone holds ~2.4e9
+# expert parameters, and four ranks each assembling whole params and
+# gradients plus their block of the moments pass 80 GB.
+MOE_RANK_ARCHS = ("mixtral-8x22b", "grok-1-314b")
+MOE_RANK_FAULTS = [(1, 1)]
+MOE_RANK_STEPS = 3
+MOE_RANK_SHARD = (2, 32)           # per-shard batch, sequence
+MOE_RANK_TOL = 1e-5                # loss and grad norm against NCCL at world size 1 (f32)
+
+
+def moe_rank_run(torch, P, arch, dev) -> dict:
+    """``arch``'s smoke config in f32 through MOE_RANK_FAULTS for
+    MOE_RANK_STEPS steps on the process group this process holds; each
+    step's record."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+
+    cfg = get_smoke_config(arch).replace(dtype="float32", param_dtype="float32")
+    batch, seq = MOE_RANK_SHARD
+    cluster = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION),
+                               injector=P.FaultInjector.at(MOE_RANK_FAULTS), device=dev)
+    trainer = P.ResilientTrainer(cfg, TrainConfig(total_steps=MOE_RANK_STEPS, warmup_steps=1),
+                                 cluster, per_shard_batch=batch, seq_len=seq)
+    steps = []
+    for _ in range(MOE_RANK_STEPS):
+        t0 = time.perf_counter()
+        r = trainer.run_step()
+        torch.cuda.synchronize()
+        steps.append(dict(step=r.step, loss=r.loss, grad_norm=r.grad_norm,
+                          shards=r.active_shards, metrics=r.metrics,
+                          repair=None if r.repair is None else re.sub(r"wall=\S+", "wall=*",
+                                                                      r.repair.summary()),
+                          wall_s=time.perf_counter() - t0))
+    return dict(distributed=trainer.distributed, world=cluster.dataplane.world, steps=steps)
+
+
+def moe_worker(torch, dev, out_path: Path) -> dict:
+    """12b's MoE runs on one rank of MR_WORLD over gloo (started with
+    torchrun's variables); writes the record to ``out_path``."""
+    import torch.distributed as dist
+
+    from repro_torch import core as P
+    from repro_torch.dist import init_from_env
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    dev = init_from_env(dev.type, backend="gloo")
+    rank = dist.get_rank()
+    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
+                "absmax": Q.absmax_cuda, "quantize_int8": Q.quantize_int8_cuda}
+    record = {"rank": rank}
+    zero(counters)
+    for arch in MOE_RANK_ARCHS:
+        record[arch] = moe_rank_run(torch, P, arch, dev)
+        for st in record[arch]["steps"]:
+            print(f"[12b] {arch} smoke f32, gloo, rank {rank} step {st['step']}: loss "
+                  f"{st['loss']:.7f} grad_norm {st['grad_norm']:.6f} shards {st['shards']} "
+                  f"wall s {st['wall_s']:.3f}{' REPAIR ' + st['repair'] if st['repair'] else ''}",
+                  flush=True)
+    record["launches"] = launches_of(torch, counters)
+    dist.barrier()
+    dist.destroy_process_group()
+    out_path.write_text(json.dumps(record))
+    return record
+
+
+def moe_ranks(torch, P, dev, counters) -> dict:
+    """12b's MoE part: each MOE_RANK_ARCHS run with NCCL at world size 1 in
+    this process, then over MR_WORLD gloo ranks (``--moe-worker``): every
+    rank's shards, repairs and reports equal, its loss and grad norm within
+    MOE_RANK_TOL of world size 1's. Returns the launches of each run by
+    path (none: training runs the plain paths): world size 1's counted in
+    this process, the gloo ranks' counted on each rank and summed."""
+    with world1_group(dev) as backend:
+        zero(counters)
+        one = {arch: moe_rank_run(torch, P, arch, dev) for arch in MOE_RANK_ARCHS}
+        one_launches = launches_of(torch, counters)
+    records = run_ranks("--moe-worker", ROOT / "build" / "moe_ranks", "12b")
+    launches = {name: sum(rec["launches"][name] for rec in records) for name in one_launches}
+    print(f"[12b] MoE kernel launches: {backend} at world size 1 {json.dumps(one_launches)}; "
+          f"{MR_WORLD} gloo ranks, summed {json.dumps(launches)}")
+    ok = True
+    for arch in MOE_RANK_ARCHS:
+        want = one[arch]["steps"]
+        keys = ("step", "shards", "repair")
+        worst = {k: 0.0 for k in ("loss", "grad_norm")}
+        for rec in records:
+            got = rec[arch]["steps"]
+            ok &= rec[arch]["distributed"] and rec[arch]["world"] == MR_WORLD
+            ok &= [{k: g[k] for k in keys} for g in got] == [{k: w[k] for k in keys}
+                                                             for w in want]
+            for k in worst:
+                worst[k] = max([worst[k]] + [abs(g[k] - w[k]) / abs(w[k])
+                                             for g, w in zip(got, want)])
+        ok &= max(worst.values()) <= MOE_RANK_TOL and all(math.isfinite(w["loss"])
+                                                          for w in want)
+        print(f"[12b] {arch} smoke f32 over {MR_WORLD} gloo ranks vs {backend} at world size 1: "
+              f"shards {[w['shards'] for w in want]}, repairs at "
+              f"{[w['step'] for w in want if w['repair']]}; losses {[w['loss'] for w in want]}; "
+              f"metrics at the last step {json.dumps(want[-1]['metrics'])}; worst relative "
+              f"{json.dumps(worst)} (limit {MOE_RANK_TOL:g}); step wall s (rank 0) "
+              f"{[round(st['wall_s'], 3) for st in records[0][arch]['steps']]}")
+    if not ok or any(launches.values()) or any(one_launches.values()):
+        raise AssertionError(f"phase 12b: the MoE runs over the ranks differ from world size 1 "
+                             f"(launches {one_launches}, over the ranks {launches})")
+    return {"train:moe-nccl1": one_launches, f"train:moe-gloo{MR_WORLD}": launches}
+
+
 def train_ranks_phase(torch, P, cfg, dev, counters, one=None) -> dict:
     """Phase 12: (a) ``train_nccl1`` in this process; (b) a one-rank run of
     ``cfg`` cut to TR_LAYERS layers on the card (freed after), then the same
@@ -2048,8 +2179,9 @@ def train_ranks_phase(torch, P, cfg, dev, counters, one=None) -> dict:
     step_lines("12b", f"{TR_LAYERS} layers, one rank, no group (peak memory {peak} B)", records)
     b_launches = train_ranks_check(
         run_ranks("--train-worker", ROOT / "build" / "train_ranks", "12b"), one_b)
+    moe_launches = moe_ranks(torch, P, dev, counters)
     print(f"[12] phase 12 took {time.perf_counter() - t0:.1f} s")
-    return {"train:nccl1": a["launches"], f"train:gloo{MR_WORLD}": b_launches}
+    return {"train:nccl1": a["launches"], f"train:gloo{MR_WORLD}": b_launches, **moe_launches}
 
 
 # ---- placement and the dry-run (phase 13) ---------------------------------
@@ -2062,6 +2194,10 @@ DRY_ARCH = "llama3.2-3b"
 DRY_CELLS = (("train", 8, 1024), ("prefill", 4, 4096), ("decode", 8, 32768))  # kind, B, S
 DRY_PEAK_RATIO = (0.5, 2.0)     # the dry-run's peak over the card's, (b)
 DRY_PRODUCTION = ("train_4k", "decode_32k")
+# 13c: the decode cells DTensor once could not view (MoE routing, whisper's
+# new K/V), (arch, multi_pod), at full depth
+DRY_REPAIRED = (("mixtral-8x22b", True), ("grok-1-314b", True),
+                ("whisper-tiny", False), ("whisper-tiny", True))
 DRY_TIMEOUT_S = 900
 
 
@@ -2078,11 +2214,13 @@ def dry_shapes():
 
 
 def dryrun_worker(which: str, out_path: Path) -> None:
-    """Phase 13b ("card") or 13c ("production") in a process of its own,
-    with no card: the dry-run's records, written to ``out_path``."""
+    """Phase 13b ("card": the three cells and the kernel roofline of the
+    prefill cell), 13c ("production") or 13c's repaired cells ("repaired")
+    in a process of its own, with no card: the dry-run's records, written to
+    ``out_path``."""
     import logging
 
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, kernel_roofline
     from repro_torch.launch.mesh import make_named_mesh
 
     # DTensor notes each multi-step redistribution (thousands a cell)
@@ -2092,10 +2230,19 @@ def dryrun_worker(which: str, out_path: Path) -> None:
         dryrun.fake_group(1)
         mesh = make_named_mesh((1, 1), ("data", "model"), device="cpu")
         for shape in dry_shapes():
-            m = dryrun.dryrun_step(dry_cfg(), shape, mesh)
+            # the prefill cell runs attributed: its record and its roofline
+            # come from the one run (attribution leaves the totals as they are)
+            prefill = shape.kind == "prefill"
+            m = dryrun.dryrun_step(dry_cfg(), shape, mesh, attribute=prefill)
             recs[shape.kind] = {"argument_bytes": m["argument_bytes"],
                                 "spec_bytes": m["spec_bytes"], "peak_bytes": m["peak_bytes"],
                                 "flops": m["cost"].flops, "run_s": m["run_s"]}
+            if prefill:
+                recs["roofline"] = kernel_roofline.report(dry_cfg(), shape, mesh, step=m)
+    elif which == "repaired":
+        for arch, multi_pod in DRY_REPAIRED:
+            rec = dryrun.run_cell(arch, "decode_32k", multi_pod=multi_pod, verbose=False)
+            recs[f"{arch}/decode_32k/{'pod2' if multi_pod else 'pod1'}"] = rec
     else:
         for multi_pod in (False, True):
             for name in DRY_PRODUCTION:
@@ -2300,7 +2447,7 @@ def dryrun_phase(torch, api, dev, counters) -> dict:
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     procs = {}
-    for which in ("card", "production"):
+    for which in ("card", "production", "repaired"):
         log = open(out_dir / f"{which}.log", "w")
         procs[which] = (subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker", which,
@@ -2323,6 +2470,7 @@ def dryrun_phase(torch, api, dev, counters) -> dict:
             print((out_dir / f"{which}.log").read_text()[-6000:])
             raise AssertionError(f"13: the {which} dry-run exited {p.returncode}")
     dry = json.loads((out_dir / "card.json").read_text())
+    roof = dry.pop("roofline")
     for kind, rec in dry.items():
         cell = card[kind]
         ratio = rec["peak_bytes"] / cell["peak"]
@@ -2335,7 +2483,21 @@ def dryrun_phase(torch, api, dev, counters) -> dict:
         if not DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1]:
             raise AssertionError(f"13b: {kind} peak estimate {ratio:.3f} of the card's")
         cell["dryrun"] = rec
+    print(f"[13b] kernel roofline of the prefill cell (B={dry_shapes()[1].global_batch}, "
+          f"S={dry_shapes()[1].seq_len}, (1, 1) mesh, {roof['chip']} datasheet, blocks "
+          f"{roof['block_q']} x {roof['block_k']}; {roof['run_s']:.1f} s): attention-interior "
+          f"bytes {roof['interior_bytes']:.6e} of {roof['total_bytes']:.6e} "
+          f"({100 * roof['interior_share']:.2f}%); memory term blocked path "
+          f"{roof['memory_blocked_s'] * 1e3:.3f} ms, flash kernel "
+          f"{roof['memory_flash_s'] * 1e3:.3f} ms; compute {roof['compute_s'] * 1e3:.3f} ms; "
+          f"measured on the card (13a): plain {card['prefill']['wall_ms']:.3f} ms, kernels "
+          f"{card['prefill']['kernel_wall_ms']:.3f} ms")
+    if not 0 < roof["interior_bytes"] < roof["total_bytes"]:
+        raise AssertionError("13b: the attention-interior bytes are not within the step's")
     prod = json.loads((out_dir / "production.json").read_text())
+    prod.update(json.loads((out_dir / "repaired.json").read_text()))
+    print(f"[13c] the repaired decode cells ({', '.join(k for k in prod if '/decode_32k/' in k)}) "
+          f"at full depth")
     for name, rec in prod.items():
         ma, terms = rec["memory_analysis"], rec["roofline"]
         print(f"[13c] {name} {rec['mesh']} ({rec['run_s']:.1f} s): argument bytes/dev "
@@ -2350,8 +2512,99 @@ def dryrun_phase(torch, api, dev, counters) -> dict:
         if ma["argument_bytes"] != ma["spec_argument_bytes"] or not rec["cost_analysis"][
                 "flops_per_device"] > 0:
             raise AssertionError(f"13c: {name}: argument bytes differ from the specs' sum")
-    print(f"[13] the dry-run workers took {done['card']:.1f} s and {done['production']:.1f} s")
-    return {"card": card, "production": prod}
+    print(f"[13] the dry-run workers took {done['card']:.1f} s, {done['production']:.1f} s and "
+          f"{done['repaired']:.1f} s")
+    return {"card": card, "production": prod, "roofline": roof}
+
+
+# ---- the examples (phase 14) ---------------------------------------------
+# each examples_torch/*.py on the card in a process of its own, at its
+# reference's default arguments or the CI form its reference documents,
+# EXAMPLE_PARALLEL at a time
+EXAMPLE_ARGS = {
+    "chaos_campaign": ["--preset", "rack_outage", "--preset", "transient_flap",
+                       "--recovery", "substitute"],
+    "resilient_training": ["--tiny"],
+}
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLE_PARALLEL = 3
+
+
+def example_worker(torch, path: Path, out_path: Path, argv: list[str]) -> None:
+    """One twin of phase 14 in this process: ``path`` run as a script with
+    ``argv``, every kernel count zeroed just before; the counts are written
+    to ``out_path`` when it ends, and its exit, or its exception, is this
+    process's."""
+    import runpy
+
+    import repro_torch.models  # noqa: F401  (first: the kernel modules import it)
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
+                "absmax": Q.absmax_cuda, "quantize_int8": Q.quantize_int8_cuda}
+    sys.argv = [str(path), *argv]
+    sys.path.insert(0, str(path.parent))
+    zero(counters)
+    try:
+        runpy.run_path(str(path), run_name="__main__")
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        out_path.write_text(json.dumps({name: fn.launches for name, fn in counters.items()}))
+
+
+def examples_phase() -> dict:
+    """Phase 14: every twin of ``examples/`` on the card (their default
+    device), each in a process of its own (``--example-worker``, which
+    counts the kernels' launches) with EXAMPLE_TIMEOUT_S; each must exit 0.
+    Its log is in ``build/examples/``; the last lines, the wall seconds and
+    the launches are printed. Returns {example: {exit, wall_s, launches}}."""
+    out_dir = ROOT / "build" / "examples"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_phase = time.perf_counter()
+    pending = sorted((ROOT / "examples_torch").glob("*.py"))
+    if len(pending) != 10:
+        raise AssertionError(f"14: {len(pending)} examples under examples_torch/, not 10")
+    running, results = {}, {}
+    while pending or running:
+        while pending and len(running) < EXAMPLE_PARALLEL:
+            path = pending.pop(0)
+            log = open(out_dir / f"{path.stem}.log", "w")
+            argv = EXAMPLE_ARGS.get(path.stem, [])
+            running[path.stem] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--example-worker", str(path),
+                 str(out_dir / f"{path.stem}.json"), *argv], env=env, stdout=log,
+                stderr=subprocess.STDOUT, cwd=str(ROOT)), log, time.perf_counter(), argv)
+        for name, (p, log, t0, argv) in list(running.items()):
+            wall = time.perf_counter() - t0
+            if p.poll() is None and wall < EXAMPLE_TIMEOUT_S:
+                continue
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+            counts = out_dir / f"{name}.json"
+            launches = json.loads(counts.read_text()) if counts.exists() else None
+            results[name] = {"exit": p.returncode, "wall_s": wall, "launches": launches}
+            del running[name]
+            tail = (out_dir / f"{name}.log").read_text().rstrip().splitlines()[-3:]
+            command = " ".join([f"examples_torch/{name}.py", *argv])
+            print(f"[14] {command}: exit {p.returncode}, wall s {wall:.1f}, kernel launches "
+                  f"{json.dumps(launches)}"
+                  f"{' (killed at the time limit)' if p.returncode < 0 else ''}")
+            for line in tail:
+                print(f"[14]   {line}")
+        time.sleep(0.2)
+    print(f"[14] {len(results)} examples, {EXAMPLE_PARALLEL} at a time, took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    failed = sorted(name for name, r in results.items() if r["exit"] != 0 or r["launches"] is None)
+    if failed:
+        raise AssertionError(f"14: examples failed: {failed}")
+    return results
 
 
 def main(argv: list[str]) -> int:
@@ -2363,10 +2616,15 @@ def main(argv: list[str]) -> int:
     families_only = "--families-only" in argv  # phases 1-2, 3's family shapes, 10
     multirank_only = "--multirank-only" in argv  # phases 1, 11 and 12
     dryrun_only = "--dryrun-only" in argv    # phases 1, 2 (flash only) and 13
+    examples_only = "--examples-only" in argv  # phases 1, 2 (flash only) and 14
 
     if "--dryrun-worker" in argv:      # phase 13b or 13c, started by phase 13; no card
         i = argv.index("--dryrun-worker")
         dryrun_worker(argv[i + 1], Path(argv[i + 2]))
+        return 0
+    if "--example-worker" in argv:     # one twin of phase 14, started by phase 14
+        i = argv.index("--example-worker")
+        example_worker(torch, Path(argv[i + 1]), Path(argv[i + 2]), argv[i + 3:])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2377,6 +2635,10 @@ def main(argv: list[str]) -> int:
         out_dir = Path(argv[argv.index("--multirank-worker") + 1])
         multirank_worker(torch, torch.device("cuda"), get_config(MR_ARCH), MR_ELEMS,
                          out_dir / f"rank{os.environ['RANK']}.json")
+        return 0
+    if "--moe-worker" in argv:         # one rank of phase 12b's MoE runs
+        moe_worker(torch, torch.device("cuda"),
+                   Path(argv[argv.index("--moe-worker") + 1]) / f"rank{os.environ['RANK']}.json")
         return 0
     if "--train-worker" in argv:       # one rank of phase 12b, started by phase 12
         from repro_torch.configs.registry import get_config
@@ -2425,6 +2687,11 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         mr_launches.update(train_ranks_phase(torch, rt_core, train_cfgs[0], dev, counters))
         print(json.dumps({"multirank_only": mr_launches}))
+        return 0
+    if examples_only:
+        lib_paths = _build.build(["flash_attention"])
+        print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)}")
+        print(json.dumps({"examples_only": examples_phase()}))
         return 0
     if dryrun_only:
         lib_paths = _build.build(["flash_attention"])
@@ -2752,6 +3019,13 @@ def main(argv: list[str]) -> int:
     path_launches.update({f"steps:{kind}": cell["launches"]
                           for kind, cell in dry["card"].items()})
     print(json.dumps({"dryrun": dry}, default=str))
+
+    # ---- 14. the examples ------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = examples_phase()
+    path_launches.update({f"examples:{name}": r["launches"] for name, r in examples.items()})
+    print(json.dumps({"examples": examples}))
 
     def entry(name, replaces, shapes):
         """One kernel's record at the serve path (hymba-1.5b, continuous): its

@@ -51,9 +51,14 @@ A rank that holds no live node (a fault took all of them) stays outside
 the mesh: it computes nothing but still takes every world-wide collective
 (the reshard and the metrics) in lock-step. At world size 1 the step's
 operations are the one-rank step's, so its numbers are bit-identical.
-MoE configs are refused over more than one rank: their load-balancing
-loss is a mean over the whole batch's routing, not a sum over tokens, so a
-rank's part cannot be scaled into the global one.
+MoE configs route the flattened batch in groups of ``moe_group_size``
+tokens and take their load-balancing loss, router z-loss and dropped
+fraction as means over the groups. Shards are concatenated whole, so when
+the group divides a shard's tokens (``per_shard_batch * seq_len``) the
+global batch's groups are the shards' own, and the mean over them is the
+sum over ranks of each rank's mean scaled by its share: the scaling of
+step 2. A MoE config whose group does not divide a shard is refused over
+more than one rank.
 
 The registered state getters hold the trainer weakly, so a dropped trainer
 frees its tensors at once, without waiting for the cycle collector.
@@ -97,9 +102,10 @@ from repro_torch.optim.adamw import (
 
 PyTree = Any
 
-# the scalar metrics of ``api.train_loss`` (every family but MoE), summed
-# over the ranks in this order
+# the scalar metrics of ``api.train_loss``, summed over the ranks in this
+# order; a MoE config adds its routing means
 _METRICS = ("accuracy", "loss", "nll", "z_loss")
+_MOE_METRICS = ("dropped", "moe_aux", "router_z")
 # the gradient sum over ranks runs in fp32 buckets of at most this many
 # elements (1 GiB): few calls (gloo's cost is per call), bounded memory
 BUCKET_ELEMS = 1 << 28
@@ -188,11 +194,15 @@ class ResilientTrainer:
         # the step over ranks (module docstring) whenever the plane spans a
         # process group, at world size 1 too
         self.distributed = bool(getattr(plane, "distributed", False))
-        if self.distributed and plane.world > 1 and cfg.is_moe:
+        if self.distributed and plane.world > 1 and cfg.is_moe \
+                and (per_shard_batch * seq_len) % cfg.moe_group_size:
             raise NotImplementedError(
-                f"{cfg.name} over {plane.world} ranks: the MoE load-balancing loss is a "
-                "mean over the whole batch's routing and cannot be summed from the "
-                "ranks' parts; train a MoE config on one rank")
+                f"{cfg.name} over {plane.world} ranks: moe_group_size "
+                f"{cfg.moe_group_size} does not divide a shard's per_shard_batch x "
+                f"seq_len = {per_shard_batch} x {seq_len} tokens, so a routing group "
+                "would span shards of different ranks and its load-balancing loss "
+                "cannot be summed from the ranks' parts; pick a moe_group_size that "
+                "divides a shard's tokens, or train on one rank")
         self.cfg, self.tc = cfg, tc
         self.cluster = cluster
         self.device = resolve_device(cluster.device)
@@ -332,7 +342,8 @@ class ResilientTrainer:
         if shards and not member:
             raise RuntimeError(f"rank {plane.rank} owns shards {shards} but is outside "
                                "the survivors' mesh")
-        sums = torch.zeros(len(_METRICS) + 1, dtype=torch.float32, device=self.device)
+        names = _METRICS + (_MOE_METRICS if self.cfg.is_moe else ())
+        sums = torch.zeros(len(names) + 1, dtype=torch.float32, device=self.device)
         if member:
             group = None if mesh is None else mesh.get_group("data")
             lowest = 0 if mesh is None else int(mesh.mesh.min())
@@ -348,11 +359,11 @@ class ResilientTrainer:
                 finally:
                     for p in leaves:
                         p.requires_grad_(False)
-                if set(metrics) != set(_METRICS):
+                if set(metrics) != set(names):
                     raise ValueError(f"{self.cfg.name}: metrics {sorted(metrics)}, the step "
-                                     f"over ranks sums {list(_METRICS)}")
+                                     f"over ranks sums {list(names)}")
                 sums[:-1] = torch.stack([metrics[k].detach().float() * share
-                                         for k in _METRICS])
+                                         for k in names])
                 del batch, loss, metrics
             else:
                 grads = [torch.zeros_like(p) for p in leaves]
@@ -375,7 +386,7 @@ class ResilientTrainer:
         else:
             self.opt = self.opt._replace(step=self.opt.step + 1)
         dist.all_reduce(sums)
-        out = {k: sums[i] for i, k in enumerate(_METRICS)}
+        out = {k: sums[i] for i, k in enumerate(names)}
         out["grad_norm"] = sums[-1]
         return out
 

@@ -402,6 +402,24 @@ def split_last(x, *sizes: int):
     return x.reshape(*x.shape[:-1], *sizes)
 
 
+def unsplit(x, dim: int):
+    """``x`` gathered along ``dim`` where it is a DTensor split there over
+    more than one mesh dim; ``x`` itself otherwise. Such a dim is a strided
+    shard after a reshape, and DTensor refuses to view it further (a
+    cumsum's reshape, say) where GSPMD reshards implicitly. A dim split
+    over one mesh dim, or whole, stays as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dim %= x.ndim
+    split = [m for m, p in enumerate(x.placements) if getattr(p, "dim", None) == dim]
+    if len(split) < 2:
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if m in split else p
+                                          for m, p in enumerate(x.placements)])
+
+
 class _MergeLast(torch.autograd.Function):
     """A DTensor's last two dims merged; the gradient is split back with
     :func:`split_last`, which gathers it when its shard cannot be split."""

@@ -133,10 +133,11 @@ def _device_tracker():
 
 
 def dryrun_step(cfg, shape: ShapeSpec, mesh, *, device: str = "meta",
-                tc: TrainConfig | None = None) -> dict:
+                tc: TrainConfig | None = None, attribute: bool = False) -> dict:
     """Run one cell's step on stand-in DTensors over ``mesh``; returns the
     measurements (argument bytes, their sum from the specs, output and peak
-    bytes, the ``Cost``, seconds)."""
+    bytes, the ``Cost``, seconds) and the ``CostMode`` itself, whose rows
+    ``hlo_stats.contributors`` reads when ``attribute`` is on."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     specs = input_specs(cfg, shape)
@@ -147,7 +148,7 @@ def dryrun_step(cfg, shape: ShapeSpec, mesh, *, device: str = "meta",
     arg_bytes = argument_bytes(args)
     tracker = _device_tracker()
     tracker.track_external(*_local_tensors(args))
-    cost_mode = hlo_stats.CostMode()
+    cost_mode = hlo_stats.CostMode(attribute=attribute)
     with use_mesh(mesh), implicit_replication(), tracker, cost_mode:
         out = fn(**args)
     peak = sum(snap.get("Total", 0)
@@ -155,7 +156,7 @@ def dryrun_step(cfg, shape: ShapeSpec, mesh, *, device: str = "meta",
     out_bytes = argument_bytes(out)
     return {"argument_bytes": arg_bytes, "spec_bytes": spec_bytes(specs, in_sh),
             "output_bytes": out_bytes, "peak_bytes": peak, "cost": cost_mode.cost,
-            "run_s": time.perf_counter() - t0}
+            "cost_mode": cost_mode, "run_s": time.perf_counter() - t0}
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -231,6 +232,22 @@ def cell_list(args) -> list[tuple[str, str]]:
     return [(args.arch, args.shape)]
 
 
+def parse_overrides(items: list[str]) -> dict:
+    """``key=value`` strings as config overrides, each value an int, a float
+    or else the string."""
+    overrides = {}
+    for ov in items:
+        k, v = ov.split("=", 1)
+        for cast in (int, float):
+            try:
+                v = cast(v)
+                break
+            except ValueError:
+                continue
+        overrides[k] = v
+    return overrides
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -249,17 +266,7 @@ def main(argv: list[str] | None = None) -> int:
     # DTensor notes each multi-step redistribution; a sweep would print thousands
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
 
-    overrides = {}
-    for ov in args.override:
-        k, v = ov.split("=", 1)
-        for cast in (int, float):
-            try:
-                v = cast(v)
-                break
-            except ValueError:
-                continue
-        overrides[k] = v
-
+    overrides = parse_overrides(args.override)
     meshes = [True, False] if args.both_meshes else [args.multi_pod]
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)

@@ -254,8 +254,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         a = lp["attn"]
         q = split_last(h @ a["wq"], cfg.n_heads, cfg.head_dim)
-        k_cache[:, pos] = (h @ a["wk"]).reshape(B, cfg.n_kv_heads, cfg.head_dim)
-        v_cache[:, pos] = (h @ a["wv"]).reshape(B, cfg.n_kv_heads, cfg.head_dim)
+        k_cache[:, pos] = split_last(h @ a["wk"], cfg.n_kv_heads, cfg.head_dim)[:, 0]
+        v_cache[:, pos] = split_last(h @ a["wv"], cfg.n_kv_heads, cfg.head_dim)[:, 0]
         o = decode_attention(q, k_cache, v_cache, valid, head_shard=cfg.act_shard)
         x = x + merge_last(o) @ a["wo"]
         hc = rms_norm(x, lp["cross_norm"], cfg.norm_eps)

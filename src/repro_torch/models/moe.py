@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import shard_activations, shard_heads
+from repro_torch.dist.sharding import shard_activations, shard_heads, unsplit
 from repro_torch.models.common import activation_fn, dense_init
 
 
@@ -102,6 +102,11 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
 
     # (n*g, D) @ (D, E): a product with no batch dims, as the reference's einsum
     logits = (x.float() @ p["router"].float()).reshape(n, g, E)
+    # at decode one group's tokens may span the devices of more than one
+    # mesh dim: route the group whole there (its logits are a few KB); where
+    # each device holds whole groups, as in training and prefill, these are
+    # the logits themselves
+    logits = unsplit(logits, 1)
     expert_idx, slot, keep, gates, aux, z, dropped = _route_group(cfg, logits, C)
     # rows of the (n * (E*C + 1), D) buffer, group by group
     base = (torch.arange(n, device=x.device) * (sink + 1))[:, None, None]

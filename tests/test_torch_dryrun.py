@@ -9,7 +9,9 @@
   with the reference's ``TPU_V5E`` as the chip for both.
 - The CLI once on both production meshes in one process (``--both-meshes
   --override n_layers=1``: the fake group of 512 ranks, then of 256), each
-  record's argument bytes against the sum the specs give.
+  record's argument bytes against the sum the specs give; the same for the
+  four decode cells that once failed on a DTensor view (mixtral-8x22b and
+  grok-1-314b on (2, 16, 16), whisper-tiny on both meshes).
 - On a mesh of one rank the steps run on DTensors of real values and give
   bit for bit the plain steps' results: the constraints and the per-device
   blocks change no arithmetic.
@@ -213,6 +215,42 @@ def test_cli_writes_a_production_record(cli_both_meshes, mesh_tag, mesh_desc, n_
     assert rec["roofline"]["dominant"] in ("compute_s", "memory_s", "collective_s")
     for dropped in ("compile_s", "xla_flops_unscaled", "temp_bytes"):
         assert dropped not in json.dumps(rec)
+
+
+# the decode cells whose routing (MoE: one group of 128 tokens split over
+# pod and data) or new K/V (whisper: 6 heads on 16) DTensor could not view
+REPAIRED = {"mixtral-8x22b": ["--multi-pod"], "grok-1-314b": ["--multi-pod"],
+            "whisper-tiny": ["--both-meshes"]}
+
+
+@pytest.fixture(scope="module")
+def cli_repaired(tmp_path_factory) -> Path:
+    """The CLI's records of the repaired decode cells at one layer, one
+    process an arch, all at once."""
+    out = tmp_path_factory.mktemp("dryrun_repaired")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+         "decode_32k", *flags, "--override", "n_layers=1", "--out", str(out)],
+        env=dict(_env(False), OMP_NUM_THREADS="2"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for arch, flags in REPAIRED.items()]
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=TIMEOUT_S)
+        assert proc.returncode == 0, stdout[-2000:] + stderr[-3000:]
+    return out
+
+
+@pytest.mark.parametrize("arch,mesh_tag", [("mixtral-8x22b", "pod2"), ("grok-1-314b", "pod2"),
+                                           ("whisper-tiny", "pod2"), ("whisper-tiny", "pod1")])
+def test_repaired_decode_cells_complete(cli_repaired, arch, mesh_tag):
+    rec = json.loads((cli_repaired / f"{arch}_decode_32k_{mesh_tag}.json").read_text())
+    assert not rec["skipped"] and rec["overrides"] == {"n_layers": 1}
+    cfg = port_registry.get_config(arch).replace(n_layers=1)
+    mesh = compat.abstract_mesh(*MESHES[mesh_tag])
+    ma = rec["memory_analysis"]
+    assert ma["argument_bytes"] == ma["spec_argument_bytes"] == \
+        _spec_bytes(cfg, port_base.SHAPES["decode_32k"], mesh)
+    assert rec["cost_analysis"]["flops_per_device"] > 0
+    assert rec["collectives"]["total_wire_bytes"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
-Every module under ``src/repro_torch/`` and ``chip_smoke.py`` is parsed and
-its imports checked; the kernel wrappers, their dispatch and the data
+Every module under ``src/repro_torch/`` (``launch/kernel_roofline.py``
+among them), every example twin under ``examples_torch/`` and
+``chip_smoke.py`` is parsed and its imports checked; the kernel wrappers, their dispatch and the data
 plane's compression path must not catch around a launch (a failed launch
 raises, it never falls back).
 """
@@ -15,7 +16,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples_torch").glob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -63,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.checkpoint, repro_torch.optim, repro_torch.data, "
             "repro_torch.launch.train, repro_torch.core.trainer, "
             "repro_torch.checkpoint.store, repro_torch.data.threefry, "
-            "repro_torch.serve.engine, repro_torch.core.chaos\n"
+            "repro_torch.serve.engine, repro_torch.core.chaos, "
+            "repro_torch.launch.kernel_roofline, repro_torch.launch.dryrun\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

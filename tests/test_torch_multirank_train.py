@@ -12,7 +12,12 @@ Three groups of processes start once for the module, all at once:
   and runs the shrink run through the step over the group, then, with the
   group destroyed, through the one-rank step;
 - torchrun starts ``python -m repro_torch.launch.train --device cpu
-  --backend gloo`` on four ranks with the smoke config and ``--fail 2:1``.
+  --backend gloo`` on four ranks with the smoke config and ``--fail 2:1``;
+- four ranks (``... train_moe``) train mixtral-8x22b's and grok-1-314b's
+  smoke configs in f32 through ``MOE_RUN`` (three steps through fault
+  (1, 1)): their routing group (64 tokens) is a shard's 2 x 32 tokens, so
+  the aux and router z losses, means over groups, sum from the ranks'
+  parts; on shards of 32 tokens the trainer refuses the config.
 
 Meanwhile this process runs the same runs through the JAX package's
 trainer (under ``test_torch_runtime``'s stand-in for its uncommitted
@@ -25,6 +30,8 @@ oracle. Tolerances: integers exact; loss and grad norm within
 but 0.1% of each leaf's elements and within 2 x lr x steps on every one
 (an element whose summed gradient is near zero may take an Adam step of
 the other sign; measured: 1.1e-6 at most); bit for bit at world size 1.
+The MoE runs are held to the same tolerances, their routing metrics (aux
+loss, router z, dropped fraction) with the loss.
 """
 from __future__ import annotations
 
@@ -54,7 +61,9 @@ import torch_multirank_ranks as rank_program  # noqa: E402
 from repro.checkpoint import store as jax_store  # noqa: E402
 from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
 from repro.configs.base import TrainConfig as JaxTrainConfig  # noqa: E402
+from repro.configs import registry as jax_registry  # noqa: E402
 from repro.models import api as jax_api  # noqa: E402
+from repro_torch.configs import registry as port_registry  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import LegionCheckpointer  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -80,9 +89,9 @@ def _flat(tree, path=()):
         yield "/".join(path), tree
 
 
-def _reference_run(R, jcfg, init, name, workdir) -> dict:
-    """``TRAIN_RUNS[name]`` through the JAX package's trainer."""
-    spec = rank_program.TRAIN_RUNS[name]
+def _reference_run(R, jcfg, init, name, workdir, spec=None) -> dict:
+    """``TRAIN_RUNS[name]`` (or ``spec``) through the JAX package's trainer."""
+    spec = spec or rank_program.TRAIN_RUNS[name]
     ck = R.LegionCheckpointer(str(workdir / f"ref_ckpt_{name}")) if "restore" in spec else None
     tc = JaxTrainConfig(**rank_program.TRAIN_TC,
                         checkpoint_every=rank_program.CHECKPOINT_EVERY if ck else 0)
@@ -102,9 +111,9 @@ def _reference_run(R, jcfg, init, name, workdir) -> dict:
             "live_nodes": list(cl.live_nodes), "last_tokens": np.asarray(batch["tokens"])}
 
 
-def _one_rank_run(pcfg, init_tree, name, workdir) -> dict:
-    """``TRAIN_RUNS[name]`` through the port's trainer on one rank."""
-    spec = rank_program.TRAIN_RUNS[name]
+def _one_rank_run(pcfg, init_tree, name, workdir, spec=None) -> dict:
+    """``TRAIN_RUNS[name]`` (or ``spec``) through the port's trainer on one rank."""
+    spec = spec or rank_program.TRAIN_RUNS[name]
     ck = LegionCheckpointer(str(workdir / f"one_ckpt_{name}")) if "restore" in spec else None
     tr = rank_program.port_trainer(pcfg, spec, init_tree, "sim", ck)
     reports = rank_program.drive(tr, spec, ck)
@@ -121,17 +130,23 @@ def runs(tmp_path_factory):
     workdir = tmp_path_factory.mktemp("multirank_train")
     jcfg, pcfg = JaxModelConfig(**TINY_FIELDS), ModelConfig(**TINY_FIELDS)
     init = dict(_flat(jax.tree.map(np.asarray, jax_api.init_params(jcfg, jax.random.PRNGKey(0)))))
+    moe_init = {arch: dict(_flat(jax.tree.map(np.asarray, jax_api.init_params(
+        rank_program.moe_config(arch, jax_registry), jax.random.PRNGKey(0)))))
+        for arch in rank_program.MOE_ARCHS}
     np.savez(workdir / "inputs.npz", fields=np.asarray(json.dumps(TINY_FIELDS)),
-             **{f"init/{k}": v for k, v in init.items()})
+             **{f"init/{k}": v for k, v in init.items()},
+             **{f"moe/{arch}/init/{k}": v for arch, tree in moe_init.items()
+                for k, v in tree.items()})
     base = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         base.pop(k, None)
     procs = {}
-    for rank in range(WORLD):
-        procs[("train", rank)] = subprocess.Popen(
-            [sys.executable, str(RANKS), "train", str(rank), str(WORLD), str(workdir)],
-            env=base, cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+    for case in ("train", "train_moe"):
+        for rank in range(WORLD):
+            procs[(case, rank)] = subprocess.Popen(
+                [sys.executable, str(RANKS), case, str(rank), str(WORLD), str(workdir)],
+                env=base, cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
     procs[("train1", 0)] = subprocess.Popen(
         [sys.executable, str(RANKS), "train1", "0", "1", str(workdir)],
         env=dict(base, RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
@@ -150,8 +165,18 @@ def runs(tmp_path_factory):
 
             loaded["reference"] = {name: _reference_run(R, jcfg, init, name, workdir)
                                    for name in RUNS}
+            loaded["moe_reference"] = {
+                arch: _reference_run(R, rank_program.moe_config(arch, jax_registry),
+                                     moe_init[arch], arch, workdir, rank_program.MOE_RUN)
+                for arch in rank_program.MOE_ARCHS}
         init_tree = rank_program.unflatten({f"init/{k}": v for k, v in init.items()}, "init/")
         loaded["one"] = {name: _one_rank_run(pcfg, init_tree, name, workdir) for name in RUNS}
+        loaded["moe_one"] = {
+            arch: _one_rank_run(rank_program.moe_config(arch, port_registry),
+                                rank_program.unflatten({f"i/{k}": v for k, v in
+                                                        moe_init[arch].items()}, "i/"),
+                                arch, workdir, rank_program.MOE_RUN)
+            for arch in rank_program.MOE_ARCHS}
         loaded["cli_one"] = _one_rank_cli()
         failures = []
         for key, proc in procs.items():
@@ -168,7 +193,7 @@ def runs(tmp_path_factory):
                 proc.communicate()
     assert not failures, "\n".join(failures)
     loaded["cli_out"] = cli_out
-    for case, world in (("train", WORLD), ("train1", 1)):
+    for case, world in (("train", WORLD), ("train1", 1), ("train_moe", WORLD)):
         loaded[case] = []
         for rank in range(world):
             with open(workdir / f"{case}.rank{rank}.pkl", "rb") as f:
@@ -355,3 +380,64 @@ def test_cli_under_torchrun_world4(runs):
     assert (got["repairs"], got["survivors"]) == (1, 7)
     np.testing.assert_allclose(got["first_loss"], want["first_loss"], rtol=CLI_FIRST_TOL)
     np.testing.assert_allclose(got["last_loss"], want["last_loss"], rtol=CLI_LAST_TOL)
+
+
+# ---------------------------------------------------------------------------
+# MoE configs over the four ranks
+# ---------------------------------------------------------------------------
+
+MOE_METRICS = ("moe_aux", "router_z", "dropped")
+
+
+def _close(got: list[dict], want: list[dict], tol: float, label: str) -> None:
+    """Loss, grad norm and the MoE metrics of each report within ``tol``."""
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([r[key] for r in got], [r[key] for r in want], rtol=tol,
+                                   err_msg=f"{label} {key}")
+    for key in MOE_METRICS:
+        np.testing.assert_allclose([r["metrics"][key] for r in got],
+                                   [r["metrics"][key] for r in want], rtol=tol, atol=tol,
+                                   err_msg=f"{label} {key}")
+
+
+@pytest.mark.parametrize("arch", rank_program.MOE_ARCHS)
+def test_moe_world4_matches_reference(runs, arch):
+    """Each rank's reports against the JAX package's trainer on one device:
+    the integers equal, loss, grad norm and the routing metrics within
+    TRAJECTORY_TOL."""
+    want = runs["moe_reference"][arch]["reports"]
+    assert any(r["repair"] is not None for r in want)
+    for rank, out in enumerate(runs["train_moe"]):
+        got = out[arch]
+        assert got["distributed"]
+        assert _integers(got["reports"]) == _integers(want), (rank, arch)
+        _close(got["reports"], want, TRAJECTORY_TOL, f"rank {rank} {arch}")
+
+
+@pytest.mark.parametrize("arch", rank_program.MOE_ARCHS)
+def test_moe_world4_matches_one_rank(runs, arch):
+    """The four ranks against the port's trainer on one rank: the integers
+    equal, loss, grad norm and the routing metrics within 1e-5, every rank's
+    reports the same, the final params within the module's tolerance."""
+    one = runs["moe_one"][arch]
+    lr, steps = rank_program.TRAIN_TC["learning_rate"], len(one["reports"])
+    first = runs["train_moe"][0][arch]["reports"]
+    for rank, out in enumerate(runs["train_moe"]):
+        got = out[arch]
+        assert got["reports"] == first, (rank, arch)
+        assert _integers(got["reports"]) == _integers(one["reports"])
+        _close(got["reports"], one["reports"], ONE_RANK_TOL, f"rank {rank} {arch}")
+        assert set(got["final"]) == set(one["final"])
+        for key, want in one["final"].items():
+            diff = np.abs(got["final"][key] - want)
+            assert diff.max() <= 2 * lr * steps, (rank, arch, key, diff.max())
+            assert np.mean(diff > PARAM_ATOL) <= PARAM_OUTLIERS, (rank, arch, key)
+
+
+@pytest.mark.parametrize("arch", rank_program.MOE_ARCHS)
+def test_moe_refused_where_the_group_does_not_divide_a_shard(runs, arch):
+    for out in runs["train_moe"]:
+        msg = out[arch]["refused"]
+        assert msg is not None and msg.startswith(f"{arch.split('-')[0]}-smoke over 4 ranks")
+        assert "moe_group_size 64 does not divide a shard's per_shard_batch x seq_len = " \
+            "1 x 32 tokens" in msg

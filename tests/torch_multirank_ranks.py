@@ -245,6 +245,18 @@ TRAIN_RUNS = {
 }
 
 
+# MoE over ranks: each arch's smoke config in f32 (its moe_group_size, 64,
+# divides a shard's PER_SHARD_BATCH x SEQ_LEN = 64 tokens) for three steps
+# through one fault; the same config on shards of 32 tokens is refused
+MOE_ARCHS = ("mixtral-8x22b", "grok-1-314b")
+MOE_RUN = dict(faults=[(1, 1)], policy={}, steps=3)
+
+
+def moe_config(arch: str, module):
+    """``arch``'s smoke config in f32 from a package's ``configs.registry``."""
+    return module.get_smoke_config(arch).replace(dtype="float32", param_dtype="float32")
+
+
 def report_record(r) -> dict:
     """A TrainerReport's fields but its measured seconds (the repair's wall
     time masked in its summary)."""
@@ -386,6 +398,35 @@ def case_train(rank: int, world: int, inputs: dict) -> dict:
         rec["live_nodes"] = list(tr.cluster.live_nodes)
         rec["reshards"] = [(r.n_devices, r.mesh_shape, r.leaves) for r in tr.cluster.reshards]
         out[name] = rec
+    return out
+
+
+def case_train_moe(rank: int, world: int, inputs: dict) -> dict:
+    """World 4: each MOE_ARCHS smoke config through MOE_RUN on the torch plane
+    over the group (its reports and final params), and the message that
+    refuses it on shards whose tokens its routing group does not divide."""
+    from repro_torch import core as P
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = moe_config(arch, registry)
+        tr = port_trainer(cfg, MOE_RUN, unflatten(inputs, f"moe/{arch}/init/"), "torch")
+        reports = [report_record(r) for r in drive(tr, MOE_RUN)]
+        out[arch] = {"distributed": tr.distributed, "reports": reports,
+                     "final": {k: v["whole"] for k, v in _state_seen(tr).items()
+                               if k.startswith("params")}}
+        del tr
+        cl = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION,
+                                                                data_plane="torch"),
+                              device="cpu")
+        try:
+            P.ResilientTrainer(cfg, TrainConfig(**TRAIN_TC), cl, per_shard_batch=1,
+                               seq_len=SEQ_LEN)
+            out[arch]["refused"] = None
+        except NotImplementedError as e:
+            out[arch]["refused"] = str(e)
     return out
 
 
@@ -578,7 +619,7 @@ def case_helpers(rank: int, world: int, inputs: dict) -> dict:
 
 
 CASES = {"campaign": case_campaign, "reshard": case_reshard, "world1": case_world1,
-         "train": case_train, "train1": case_train1,
+         "train": case_train, "train1": case_train1, "train_moe": case_train_moe,
          "helpers": case_helpers}
 
 
