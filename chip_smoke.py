@@ -138,7 +138,11 @@ never JAX or the JAX package, and runs, in order:
         516 MB payloads, the int8 hop) once on the one-device plane, then
         with the process group started by ``init_from_env("cuda")``, which
         runs the plane's group path: byte-identical per step, the absmax
-        and quantize launches counted over the group's run;
+        and quantize launches counted over the group's run; then the MPI
+        reductions beyond add (multiply, the logical and the bitwise ops;
+        the bitwise ones and logical_xor fold from bytes on every backend) on
+        int32 payloads through a shrink of ``Session(8)``, byte- and
+        dtype-equal to the sim plane's numpy fold;
      b. four ranks on the one card over gloo (``backend="gloo"`` named
         explicitly; NCCL refuses two ranks on one card), each a process of
         this script (``--multirank-worker DIR``, started with torchrun's
@@ -152,7 +156,8 @@ never JAX or the JAX package, and runs, in order:
         rank) registered as the trainer registers them and resharded after
         each repair, the last time from 4 ranks to 3 (each ``ReshardReport``
         and every leaf's placements printed; every leaf reassembled and its
-        fingerprint held to the one taken before registration);
+        fingerprint held to the one taken before registration); the MPI
+        reductions of 11a over the four ranks;
      c. on the same four ranks, ``agree_bitmap_inprogram`` and
         ``make_hierarchical_allreduce`` over a (pod=2, data=2) mesh, against
         the AND of the bitmaps' rows and the sum of the blocks.
@@ -177,11 +182,23 @@ never JAX or the JAX package, and runs, in order:
         rank's peak memory printed. A rank that fails, or runs past 600 s,
         stops every rank and the phase; then the MoE configs over the same
         four ranks (``--moe-worker DIR``): mixtral-8x22b's and
-        grok-1-314b's smoke configs in f32 (their routing group, 64 tokens,
-        is a shard's 2 x 32), 8 nodes, three steps through fault (1, 1),
-        every rank's shards and repairs equal to the same runs with NCCL at
-        world size 1 in this process and its loss and grad norm within
-        1e-5 (full width does not fit four ranks on one card);
+        grok-1-314b's smoke configs in f32, 8 nodes, three steps through
+        fault (1, 1), with the routing group (64 tokens) a shard's 2 x 32,
+        spanning two shards on two ranks (shards of 1 x 32), cutting
+        shards (1 x 24, the last group padded after the fault) and the
+        published group (4096: one group of every live token); every
+        rank's shards and repairs equal to the same runs with NCCL at
+        world size 1 in this process and each step's loss, grad norm and
+        aux loss and router z within 1e-5, every expert choice kept or
+        dropped as there;
+        then full-width mixtral-8x22b cut to 1 of 56 layers in bf16
+        at its published group, 8 shards of 1 x 512 (one group spans all
+        eight), three steps through fault (1, 1), on two gloo ranks
+        (``--moe-full-worker DIR``; the state placed on their mesh before
+        the first step) against NCCL at world size 1 here, loss and grad
+        norm within 1e-3, aux loss and router z within 4e-3, at most 16
+        of 8192 expert choices kept otherwise, each step's wall
+        seconds and each rank's peak memory printed;
  13. placement and the dry-run (the earlier phases' tensors freed first):
      a. full-width llama3.2-3b (28 layers) through ``launch/steps.py``'s
         three step kinds on the card, inputs materialised from
@@ -238,8 +255,9 @@ its launches on every path: each model's continuous serve run under its
 name, the lock-step run under "<name>/lockstep", the train runs', phase
 10's runs under their names, phase 11's as "multirank:nccl1" and
 "multirank:gloo4", phase 12's as "train:nccl1" and "train:gloo4",
-summed over the ranks, 12b's MoE runs as "train:moe-nccl1" and
-"train:moe-gloo4", summed over the ranks, phase 13a's as "steps:train",
+summed over the ranks, 12b's MoE runs as "train:moe-nccl1",
+"train:moe-gloo4" and "train:moe-gloo2", summed over the ranks, phase
+13a's as "steps:train",
 "steps:prefill" and "steps:decode", and each twin of phase 14 as
 "examples:<name>") and ``{"ok":
 true, "device": {...}}``; ``--kernels-only``, ``--train-only``,
@@ -825,6 +843,47 @@ def leaves_of(tree, path=()):
         yield path, tree
 
 
+# the predefined MPI reductions beyond add, run on the torch plane against the
+# sim plane's numpy fold: Session(8) in legions of 4 through a shrink (a
+# member at step 2, a master at step 3)
+MPI_OPS = ("multiply", "logical_and", "logical_or", "logical_xor", "bitwise_and", "bitwise_or",
+           "bitwise_xor")
+MPI_OPS_FAULTS = [(2, 5), (3, 0)]
+MPI_OPS_STEPS = 5
+
+
+def mpi_ops_run(torch, P, PM, dev) -> dict:
+    """Each MPI_OPS op: an allreduce and a reduce a step of int32 payloads
+    with zeros among them (the logical ops' False) on the torch plane on
+    ``dev`` (over the process group this process holds, if any) and on the
+    sim plane; returns {op: every result's bytes and dtype, and every
+    stage list and clock, equal at every step}."""
+    import numpy as np
+
+    out = {}
+    for name in MPI_OPS:
+        op = getattr(np, name)
+        sess, sim = (PM.Session(8, policy=P.LegioPolicy(legion_size=4, data_plane=plane),
+                                injector=P.FaultInjector.at(MPI_OPS_FAULTS), device=device)
+                     for plane, device in (("torch", dev), ("sim", "cpu")))
+        ok = True
+        for step in range(MPI_OPS_STEPS):
+            sess.advance(step)
+            sim.advance(step)
+            live = [m for m in sim.world.members if m not in sim.cluster.failed]
+            host = {m: ((np.arange(64) * (m + 3) + step) % 5 - 2).astype(np.int32) for m in live}
+            on_dev = {m: torch.from_numpy(v).to(dev) for m, v in host.items()}
+            for call in (lambda comm, c: comm.allreduce(c, op),
+                         lambda comm, c: comm.reduce(c, root=comm.members[-1], op=op)):
+                got, want = call(sess.world, on_dev), call(sim.world, host)
+                ok &= got.stages == want.stages and got.sim_seconds == want.sim_seconds
+                ok &= set(got.data) == set(want.data) and all(
+                    (lambda g, w: g.dtype == w.dtype and g.tobytes() == w.tobytes())(
+                        got.data[n].cpu().numpy(), np.asarray(want.data[n])) for n in want.data)
+        out[name] = bool(ok)
+    return out
+
+
 def nccl_world1(torch, P, PM, dev, counters) -> dict:
     """Phase 11a: the runtime phase's path (16 ranks in legions of 4, 516 MB
     payloads, the int8 hop) on the one-device plane, then the same script
@@ -840,6 +899,12 @@ def nccl_world1(torch, P, PM, dev, counters) -> dict:
         if not (plane.distributed and plane.world == 1) or sess.cluster.reshards:
             raise AssertionError("the plane did not take the process group's path")
         del sess
+        ops = mpi_ops_run(torch, P, PM, dev)
+    print(f"[11a] {backend}, one rank: the MPI reductions on int32 payloads through a shrink "
+          f"(the bitwise ones and logical_xor fold from bytes), byte- and dtype-equal to "
+          f"the sim plane's numpy fold: {json.dumps(ops)}")
+    if not all(ops.values()):
+        raise AssertionError(f"phase 11a: an MPI reduction differs from the numpy fold: {ops}")
     same = [torch.equal(a["out"].view(torch.int32), b["out"].view(torch.int32))
             and a["stages"] == b["stages"] and a["sim_seconds"] == b["sim_seconds"]
             for a, b in zip(one, group)]
@@ -963,6 +1028,7 @@ def multirank_worker(torch, dev, cfg, elems, out_path: Path) -> dict:
                   for path, leaf in leaves_of(holder["params"])])
     hop = mr_payload(torch, dev, 0, 0, elems)
     hop_ms = time_ms(torch, lambda: plane.compress(hop, "int8", 0.0), runs=10, reps=10)
+    ops = mpi_ops_run(torch, P, PM, dev)
 
     # 11c: the in-program functions on a (pod=2, data=2) mesh of the ranks
     m22 = DeviceMesh(dev.type, torch.arange(world).reshape(2, world // 2),
@@ -981,6 +1047,7 @@ def multirank_worker(torch, dev, cfg, elems, out_path: Path) -> dict:
                   gathered=len(live), reshards=reshards, placements=placed, held_bytes=held,
                   state_bytes=n_bytes, intact=intact, hop_ms=hop_ms,
                   agreed_alive=int(agreed.sum()), agree_ok=agree_ok, allreduce_ok=allreduce_ok,
+                  mpi_ops=ops,
                   peak_bytes=torch.cuda.max_memory_allocated())
     dist.barrier()
     dist.destroy_process_group()
@@ -1008,6 +1075,10 @@ def multirank_check(records: list[dict]) -> dict:
               f"reshards {json.dumps(rec['reshards'])}; state held after "
               f"{rec['held_bytes']} B of {rec['state_bytes']} B; reassembled leaves intact "
               f"{rec['intact']}; peak memory {rec['peak_bytes']} B")
+        print(f"{tag}: the MPI reductions on int32 payloads through a shrink, byte- and "
+              f"dtype-equal to the sim plane's numpy fold: {json.dumps(rec['mpi_ops'])}")
+        if not all(rec["mpi_ops"].values()):
+            raise AssertionError(f"{tag}: an MPI reduction differs from the numpy fold")
         print(f"[11c] rank {rec['rank']}: agree_bitmap_inprogram on (pod=2, data=2) == AND of "
               f"the rows {rec['agree_ok']} ({rec['agreed_alive']} of 64 alive); "
               f"make_hierarchical_allreduce == sum of the blocks {rec['allreduce_ok']}")
@@ -1035,8 +1106,8 @@ def multirank_check(records: list[dict]) -> dict:
     return {"flash_attention": 0, "ssd_scan": 0, **launches}
 
 
-def run_ranks(flag: str, out_dir: Path, tag: str) -> list[dict]:
-    """MR_WORLD copies of this script with ``flag out_dir`` and torchrun's
+def run_ranks(flag: str, out_dir: Path, tag: str, world: int = MR_WORLD) -> list[dict]:
+    """``world`` copies of this script with ``flag out_dir`` and torchrun's
     variables (gloo on the one card); each rank's log is printed. A rank
     that fails or outlives MR_TIMEOUT_S stops every rank and raises.
     Returns each rank's record, ``out_dir/rank<r>.json``."""
@@ -1044,8 +1115,8 @@ def run_ranks(flag: str, out_dir: Path, tag: str) -> list[dict]:
     out_dir.mkdir(parents=True)
     port = str(free_port())
     procs = []
-    for rank in range(MR_WORLD):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(MR_WORLD), LOCAL_RANK=str(rank),
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                    MASTER_ADDR="localhost", MASTER_PORT=port)
         env.setdefault("GLOO_SOCKET_IFNAME", "lo")
         log = open(out_dir / f"rank{rank}.log", "w")
@@ -1065,13 +1136,13 @@ def run_ranks(flag: str, out_dir: Path, tag: str) -> list[dict]:
                 p.kill()
             p.wait()
             log.close()
-    for rank in range(MR_WORLD):
+    for rank in range(world):
         print((out_dir / f"rank{rank}.log").read_text().rstrip())
     codes = [p.returncode for p, _ in procs]
     if any(codes):
         raise AssertionError(f"phase {tag}: rank exit codes {codes} (a kill means a rank failed "
                              f"first or {MR_TIMEOUT_S} s passed)")
-    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(MR_WORLD)]
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
 
 
 def multirank_phase(torch, P, PM, dev, counters) -> dict:
@@ -2050,65 +2121,127 @@ def train_ranks_check(records: list[dict], one: dict) -> dict:
 
 
 # 12b's MoE runs: mixtral-8x22b's and grok-1-314b's smoke configs in f32 on
-# 8 nodes, three steps through one fault. Their routing group (64 tokens) is
-# a shard's 2 x 32 tokens, which is what lets the trainer sum the MoE losses
-# over ranks. Full width does not fit: one mixtral layer alone holds ~2.4e9
-# expert parameters, and four ranks each assembling whole params and
-# gradients plus their block of the moments pass 80 GB.
+# 8 nodes, three steps through one fault, in each routing case: name ->
+# (per-shard batch, sequence, config fields). The smoke configs route in
+# groups of 64 tokens; where a group spans shards on several ranks the
+# trainer sums each layer's router logits over the ranks (models/moe.py).
 MOE_RANK_ARCHS = ("mixtral-8x22b", "grok-1-314b")
 MOE_RANK_FAULTS = [(1, 1)]
 MOE_RANK_STEPS = 3
-MOE_RANK_SHARD = (2, 32)           # per-shard batch, sequence
-MOE_RANK_TOL = 1e-5                # loss and grad norm against NCCL at world size 1 (f32)
+MOE_RANK_CASES = {
+    "divides": (2, 32, {}),                     # a group is one shard's 2 x 32 tokens
+    "spans": (1, 32, {}),                       # (a) each group spans two shards, two ranks
+    "cuts": (1, 24, {}),                        # (b) groups cut shards; the last padded later
+    "published": (1, 32, {"moe_group_size": 4096}),   # (c) one group of every live token
+}
+# each step's loss, grad norm, aux loss and router z against NCCL at world
+# size 1, relative, and ``kept``, the count of kept expert choices behind the
+# dropped fraction, in choices: in f32 within 1e-5, every choice the same
+MOE_RANK_TOL = dict.fromkeys(("loss", "grad_norm", "moe_aux", "router_z"), 1e-5) | {"kept": 0}
+# then the slice at full width: mixtral-8x22b cut to 1 of 56 layers in bf16
+# at its published group (4096 tokens), 8 shards of 1 x 512 (one group spans
+# all eight), three steps through fault (1, 1), on MOE_FULL_WORLD gloo ranks.
+# Each rank holds whole bf16 params and gradients (5.8 GB each) besides its
+# blocks of params and fp32 moments; four such ranks do not fit one card,
+# nor two whose moments are whole, so each worker places the state on the
+# ranks' mesh before the first step (reshard_registered of the full view).
+MOE_FULL_ARCH = "mixtral-8x22b"
+MOE_FULL_LAYERS = 1
+MOE_FULL_SHARD = (1, 512)
+MOE_FULL_WORLD = 2
+# bf16: the ranks' hidden states differ from world size 1's in the last
+# bits (GEMMs of another batch), so a choice near a tie may flip (of 8192
+# choices a step)
+MOE_FULL_TOL = {"loss": 1e-3, "grad_norm": 1e-3, "moe_aux": 4e-3, "router_z": 4e-3,
+                "kept": 16}
 
 
-def moe_rank_run(torch, P, arch, dev) -> dict:
-    """``arch``'s smoke config in f32 through MOE_RANK_FAULTS for
-    MOE_RANK_STEPS steps on the process group this process holds; each
-    step's record."""
+def moe_rank_run(torch, P, cfg, dev, shard, *, place=False) -> dict:
+    """``cfg`` through MOE_RANK_FAULTS for MOE_RANK_STEPS steps on 8 nodes
+    on the process group this process holds, on shards of ``shard`` (per-
+    shard batch, sequence); with ``place`` the state is placed on the
+    ranks' mesh before the first step. Each step's record, and the peak
+    memory."""
     from repro_torch.configs.base import TrainConfig
-    from repro_torch.configs.registry import get_smoke_config
 
-    cfg = get_smoke_config(arch).replace(dtype="float32", param_dtype="float32")
-    batch, seq = MOE_RANK_SHARD
+    batch, seq = shard
     cluster = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION),
                                injector=P.FaultInjector.at(MOE_RANK_FAULTS), device=dev)
     trainer = P.ResilientTrainer(cfg, TrainConfig(total_steps=MOE_RANK_STEPS, warmup_steps=1),
                                  cluster, per_shard_batch=batch, seq_len=seq)
+    if place:
+        cluster.dataplane.reshard_registered(cluster.topo.view())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     steps = []
     for _ in range(MOE_RANK_STEPS):
         t0 = time.perf_counter()
         r = trainer.run_step()
         torch.cuda.synchronize()
+        # the dropped fraction is 1 - kept / choices over every layer's groups
+        tokens = r.active_shards * batch * seq
+        g = min(cfg.moe_group_size, tokens)
+        choices = cfg.n_layers * -(-tokens // g) * g * cfg.experts_per_token
         steps.append(dict(step=r.step, loss=r.loss, grad_norm=r.grad_norm,
                           shards=r.active_shards, metrics=r.metrics,
+                          kept=round((1.0 - r.metrics["dropped"]) * choices),
                           repair=None if r.repair is None else re.sub(r"wall=\S+", "wall=*",
                                                                       r.repair.summary()),
                           wall_s=time.perf_counter() - t0))
-    return dict(distributed=trainer.distributed, world=cluster.dataplane.world, steps=steps)
+    out = dict(distributed=trainer.distributed, world=cluster.dataplane.world, steps=steps,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del trainer, cluster
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
-def moe_worker(torch, dev, out_path: Path) -> dict:
-    """12b's MoE runs on one rank of MR_WORLD over gloo (started with
-    torchrun's variables); writes the record to ``out_path``."""
-    import torch.distributed as dist
+def moe_smoke_cfg(arch: str, fields: dict):
+    from repro_torch.configs.registry import get_smoke_config
 
-    from repro_torch import core as P
-    from repro_torch.dist import init_from_env
+    return get_smoke_config(arch).replace(dtype="float32", param_dtype="float32", **fields)
+
+
+def moe_full_cfg():
+    from repro_torch.configs.registry import get_config
+
+    return get_config(MOE_FULL_ARCH).replace(n_layers=MOE_FULL_LAYERS)
+
+
+def _moe_counters():
     from repro_torch.kernels import quantize as Q
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
+    return {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
+            "absmax": Q.absmax_cuda, "quantize_int8": Q.quantize_int8_cuda}
+
+
+def moe_worker(torch, dev, out_path: Path, full: bool = False) -> dict:
+    """One rank of 12b's MoE runs over gloo (started with torchrun's
+    variables): every MOE_RANK_ARCHS x MOE_RANK_CASES run, or with ``full``
+    the full-width run; writes the record to ``out_path``."""
+    import torch.distributed as dist
+
+    from repro_torch import core as P
+    from repro_torch.dist import init_from_env
+
     dev = init_from_env(dev.type, backend="gloo")
-    rank = dist.get_rank()
-    counters = {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda,
-                "absmax": Q.absmax_cuda, "quantize_int8": Q.quantize_int8_cuda}
+    rank, world = dist.get_rank(), dist.get_world_size()
+    counters = _moe_counters()
     record = {"rank": rank}
     zero(counters)
-    for arch in MOE_RANK_ARCHS:
-        record[arch] = moe_rank_run(torch, P, arch, dev)
-        for st in record[arch]["steps"]:
-            print(f"[12b] {arch} smoke f32, gloo, rank {rank} step {st['step']}: loss "
+    if full:
+        runs = {"full": (moe_full_cfg(), MOE_FULL_SHARD,
+                         f"{MOE_FULL_ARCH} {MOE_FULL_LAYERS} layer bf16")}
+    else:
+        runs = {f"{arch}/{case}": (moe_smoke_cfg(arch, fields), (batch, seq), "smoke f32")
+                for arch in MOE_RANK_ARCHS
+                for case, (batch, seq, fields) in MOE_RANK_CASES.items()}
+    for key, (cfg, shard, label) in runs.items():
+        record[key] = moe_rank_run(torch, P, cfg, dev, shard, place=full)
+        for st in record[key]["steps"]:
+            print(f"[12b] {key} {label}, gloo, rank {rank} of {world} step {st['step']}: loss "
                   f"{st['loss']:.7f} grad_norm {st['grad_norm']:.6f} shards {st['shards']} "
                   f"wall s {st['wall_s']:.3f}{' REPAIR ' + st['repair'] if st['repair'] else ''}",
                   flush=True)
@@ -2119,46 +2252,90 @@ def moe_worker(torch, dev, out_path: Path) -> dict:
     return record
 
 
+def _moe_compare(key: str, records: list[dict], want: list[dict], world: int, tol: dict,
+                 label: str) -> bool:
+    """Every rank's shards and repairs equal to world size 1's and every
+    rank's reports equal to rank 0's; each step's loss, grad norm, aux loss
+    and router z within ``tol`` of world size 1's, relative, and its count
+    of kept choices within ``tol["kept"]`` choices."""
+    keys = ("step", "shards", "repair")
+    worst = dict.fromkeys(tol, 0.0)
+
+    def diff(g: dict, w: dict, k: str) -> float:
+        if k == "kept":
+            return abs(g[k] - w[k])
+        g, w = (s[k] if k in ("loss", "grad_norm") else s["metrics"][k] for s in (g, w))
+        return abs(g - w) / abs(w)
+
+    ok = all(math.isfinite(w["loss"]) for w in want)
+    first = [{k: v for k, v in s.items() if k != "wall_s"} for s in records[0][key]["steps"]]
+    for rec in records:
+        got = rec[key]["steps"]
+        ok &= rec[key]["distributed"] and rec[key]["world"] == world
+        ok &= [{k: v for k, v in s.items() if k != "wall_s"} for s in got] == first
+        ok &= [{k: g[k] for k in keys} for g in got] == [{k: w[k] for k in keys} for w in want]
+        for k in worst:
+            worst[k] = max([worst[k]] + [diff(g, w, k) for g, w in zip(got, want)])
+    ok &= all(worst[k] <= tol[k] for k in tol)
+    print(f"[12b] {key} {label} over {world} gloo ranks vs world size 1: shards "
+          f"{[w['shards'] for w in want]}, repairs at {[w['step'] for w in want if w['repair']]}; "
+          f"losses {[w['loss'] for w in want]}; metrics at the last step "
+          f"{json.dumps(want[-1]['metrics'])}; worst (relative, kept in choices) "
+          f"{json.dumps(worst)} (limits "
+          f"{json.dumps(tol)}) {'ok' if ok else 'FAIL'}; step wall s (rank 0) "
+          f"{[round(st['wall_s'], 3) for st in records[0][key]['steps']]}; peak memory a rank "
+          f"{[rec[key]['peak_bytes'] for rec in records]} B")
+    return ok
+
+
 def moe_ranks(torch, P, dev, counters) -> dict:
-    """12b's MoE part: each MOE_RANK_ARCHS run with NCCL at world size 1 in
-    this process, then over MR_WORLD gloo ranks (``--moe-worker``): every
-    rank's shards, repairs and reports equal, its loss and grad norm within
-    MOE_RANK_TOL of world size 1's. Returns the launches of each run by
-    path (none: training runs the plain paths): world size 1's counted in
-    this process, the gloo ranks' counted on each rank and summed."""
+    """12b's MoE part: each MOE_RANK_ARCHS x MOE_RANK_CASES run with NCCL at
+    world size 1 in this process, then over MR_WORLD gloo ranks
+    (``--moe-worker``); then the full-width run at world size 1 here and
+    over MOE_FULL_WORLD gloo ranks (``--moe-full-worker``). Every rank's
+    shards, repairs and reports equal, its loss, grad norm, routing losses
+    and kept choices within MOE_RANK_TOL (MOE_FULL_TOL at full width) of
+    world size 1's. Returns
+    the launches of each run by path (none: training runs the plain paths):
+    world size 1's counted in this process, the gloo ranks' counted on each
+    rank and summed."""
     with world1_group(dev) as backend:
         zero(counters)
-        one = {arch: moe_rank_run(torch, P, arch, dev) for arch in MOE_RANK_ARCHS}
+        one = {f"{arch}/{case}": moe_rank_run(torch, P, moe_smoke_cfg(arch, fields), dev,
+                                              (batch, seq))
+               for arch in MOE_RANK_ARCHS for case, (batch, seq, fields) in MOE_RANK_CASES.items()}
+        one["full"] = moe_rank_run(torch, P, moe_full_cfg(), dev, MOE_FULL_SHARD)
         one_launches = launches_of(torch, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = moe_full_cfg()
+    print(f"[12b] {MOE_FULL_ARCH} at full width, {MOE_FULL_LAYERS} of 56 layers, bf16, "
+          f"group {cfg.moe_group_size}, 8 shards of {MOE_FULL_SHARD[0]} x {MOE_FULL_SHARD[1]}, "
+          f"{backend} at world size 1: step wall s "
+          f"{[round(st['wall_s'], 3) for st in one['full']['steps']]}, peak memory "
+          f"{one['full']['peak_bytes']} B")
     records = run_ranks("--moe-worker", ROOT / "build" / "moe_ranks", "12b")
+    full = run_ranks("--moe-full-worker", ROOT / "build" / "moe_full", "12b",
+                     world=MOE_FULL_WORLD)
     launches = {name: sum(rec["launches"][name] for rec in records) for name in one_launches}
+    full_launches = {name: sum(rec["launches"][name] for rec in full) for name in one_launches}
     print(f"[12b] MoE kernel launches: {backend} at world size 1 {json.dumps(one_launches)}; "
-          f"{MR_WORLD} gloo ranks, summed {json.dumps(launches)}")
+          f"{MR_WORLD} gloo ranks, summed {json.dumps(launches)}; {MOE_FULL_WORLD} gloo ranks "
+          f"at full width, summed {json.dumps(full_launches)}")
     ok = True
-    for arch in MOE_RANK_ARCHS:
-        want = one[arch]["steps"]
-        keys = ("step", "shards", "repair")
-        worst = {k: 0.0 for k in ("loss", "grad_norm")}
-        for rec in records:
-            got = rec[arch]["steps"]
-            ok &= rec[arch]["distributed"] and rec[arch]["world"] == MR_WORLD
-            ok &= [{k: g[k] for k in keys} for g in got] == [{k: w[k] for k in keys}
-                                                             for w in want]
-            for k in worst:
-                worst[k] = max([worst[k]] + [abs(g[k] - w[k]) / abs(w[k])
-                                             for g, w in zip(got, want)])
-        ok &= max(worst.values()) <= MOE_RANK_TOL and all(math.isfinite(w["loss"])
-                                                          for w in want)
-        print(f"[12b] {arch} smoke f32 over {MR_WORLD} gloo ranks vs {backend} at world size 1: "
-              f"shards {[w['shards'] for w in want]}, repairs at "
-              f"{[w['step'] for w in want if w['repair']]}; losses {[w['loss'] for w in want]}; "
-              f"metrics at the last step {json.dumps(want[-1]['metrics'])}; worst relative "
-              f"{json.dumps(worst)} (limit {MOE_RANK_TOL:g}); step wall s (rank 0) "
-              f"{[round(st['wall_s'], 3) for st in records[0][arch]['steps']]}")
-    if not ok or any(launches.values()) or any(one_launches.values()):
+    for key in one:
+        if key != "full":
+            ok &= _moe_compare(key, records, one[key]["steps"], MR_WORLD, MOE_RANK_TOL,
+                               "smoke f32")
+    ok &= _moe_compare("full", full, one["full"]["steps"], MOE_FULL_WORLD, MOE_FULL_TOL,
+                       f"{MOE_FULL_ARCH} {MOE_FULL_LAYERS} layer bf16 group {cfg.moe_group_size}")
+    if not ok or any(launches.values()) or any(one_launches.values()) or \
+            any(full_launches.values()):
         raise AssertionError(f"phase 12b: the MoE runs over the ranks differ from world size 1 "
-                             f"(launches {one_launches}, over the ranks {launches})")
-    return {"train:moe-nccl1": one_launches, f"train:moe-gloo{MR_WORLD}": launches}
+                             f"(launches {one_launches}, over the ranks {launches}, "
+                             f"{full_launches})")
+    return {"train:moe-nccl1": one_launches, f"train:moe-gloo{MR_WORLD}": launches,
+            f"train:moe-gloo{MOE_FULL_WORLD}": full_launches}
 
 
 def train_ranks_phase(torch, P, cfg, dev, counters, one=None) -> dict:
@@ -2636,10 +2813,12 @@ def main(argv: list[str]) -> int:
         multirank_worker(torch, torch.device("cuda"), get_config(MR_ARCH), MR_ELEMS,
                          out_dir / f"rank{os.environ['RANK']}.json")
         return 0
-    if "--moe-worker" in argv:         # one rank of phase 12b's MoE runs
-        moe_worker(torch, torch.device("cuda"),
-                   Path(argv[argv.index("--moe-worker") + 1]) / f"rank{os.environ['RANK']}.json")
-        return 0
+    for flag in ("--moe-worker", "--moe-full-worker"):    # one rank of 12b's MoE runs
+        if flag in argv:
+            moe_worker(torch, torch.device("cuda"),
+                       Path(argv[argv.index(flag) + 1]) / f"rank{os.environ['RANK']}.json",
+                       full=flag == "--moe-full-worker")
+            return 0
     if "--train-worker" in argv:       # one rank of phase 12b, started by phase 12
         from repro_torch.configs.registry import get_config
 

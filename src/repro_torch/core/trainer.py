@@ -51,14 +51,21 @@ A rank that holds no live node (a fault took all of them) stays outside
 the mesh: it computes nothing but still takes every world-wide collective
 (the reshard and the metrics) in lock-step. At world size 1 the step's
 operations are the one-rank step's, so its numbers are bit-identical.
-MoE configs route the flattened batch in groups of ``moe_group_size``
-tokens and take their load-balancing loss, router z-loss and dropped
-fraction as means over the groups. Shards are concatenated whole, so when
-the group divides a shard's tokens (``per_shard_batch * seq_len``) the
-global batch's groups are the shards' own, and the mean over them is the
-sum over ranks of each rank's mean scaled by its share: the scaling of
-step 2. A MoE config whose group does not divide a shard is refused over
-more than one rank.
+MoE configs route the flattened global batch, the live shards sorted and
+concatenated whole, in groups of ``moe_group_size`` tokens (the last
+padded with zero rows), and take their load-balancing loss, router z-loss
+and dropped fraction as means over the groups. A group may span shards on
+several ranks, so over more than one rank the step runs the forward and
+the backward inside a ``moe.routing_span`` built anew each step (after a
+fault ``T``, the rows and the pad change): the group's ranks sum each
+layer's router logits into a buffer of the whole batch, every rank routes
+all of it and computes its own tokens (``models/moe.py``). Each rank's
+``share`` of the global routing losses backpropagates into the whole
+buffer, the backward sum adds the shares to 1, and each rank keeps its own
+rows: the router gradients the ranks sum in step 3 are the reference's.
+Every member of the mesh must run each layer's sums, so a member that
+holds no shard runs a stand-in shard that routes nothing, with its loss
+scaled by 0 and its gradients set to zeros.
 
 The registered state getters hold the trainer weakly, so a dropped trainer
 frees its tensors at once, without waiting for the cycle collector.
@@ -89,7 +96,7 @@ from repro_torch.dist.sharding import (
     place,
     tree_map_with_path,
 )
-from repro_torch.models import api
+from repro_torch.models import api, moe
 from repro_torch.optim.adamw import (
     OptState,
     adamw_init,
@@ -194,15 +201,6 @@ class ResilientTrainer:
         # the step over ranks (module docstring) whenever the plane spans a
         # process group, at world size 1 too
         self.distributed = bool(getattr(plane, "distributed", False))
-        if self.distributed and plane.world > 1 and cfg.is_moe \
-                and (per_shard_batch * seq_len) % cfg.moe_group_size:
-            raise NotImplementedError(
-                f"{cfg.name} over {plane.world} ranks: moe_group_size "
-                f"{cfg.moe_group_size} does not divide a shard's per_shard_batch x "
-                f"seq_len = {per_shard_batch} x {seq_len} tokens, so a routing group "
-                "would span shards of different ranks and its load-balancing loss "
-                "cannot be summed from the ranks' parts; pick a moe_group_size that "
-                "divides a shard's tokens, or train on one rank")
         self.cfg, self.tc = cfg, tc
         self.cluster = cluster
         self.device = resolve_device(cluster.device)
@@ -349,20 +347,31 @@ class ResilientTrainer:
             lowest = 0 if mesh is None else int(mesh.mesh.min())
             whole = assemble_params(self.params, group)
             leaves = tree_leaves(whole)
-            if shards:
-                batch = self._batch_of(step, shards)
+            span = self._routing_span(shards, group)
+            if shards or span is not None:
+                # a member with no shard runs a stand-in one under the span
+                batch = self._batch_of(step, shards or [0])
                 for p in leaves:
                     p.requires_grad_(True)
                 try:
-                    loss, metrics = api.train_loss(self.cfg, whole, batch)
-                    grads = [g.contiguous() for g in torch.autograd.grad(loss * share, leaves)]
+                    with moe.routing_span(span):   # the backward's recompute reads it too
+                        loss, metrics = api.train_loss(self.cfg, whole, batch)
+                        grads = [g.contiguous()
+                                 for g in torch.autograd.grad(loss * share, leaves)]
                 finally:
                     for p in leaves:
                         p.requires_grad_(False)
+                if not shards:
+                    grads = [torch.zeros_like(p) for p in leaves]
                 if set(metrics) != set(names):
                     raise ValueError(f"{self.cfg.name}: metrics {sorted(metrics)}, the step "
                                      f"over ranks sums {list(names)}")
-                sums[:-1] = torch.stack([metrics[k].detach().float() * share
+                weight = dict.fromkeys(names, share)
+                if span is not None:
+                    # the routing means are the global batch's on every rank:
+                    # one rank adds them, so the sum is their value exactly
+                    weight.update(dict.fromkeys(_MOE_METRICS, float(plane.rank == lowest)))
+                sums[:-1] = torch.stack([metrics[k].detach().float() * weight[k]
                                          for k in names])
                 del batch, loss, metrics
             else:
@@ -389,6 +398,21 @@ class ResilientTrainer:
         out = {k: sums[i] for i, k in enumerate(names)}
         out["grad_norm"] = sums[-1]
         return out
+
+    def _routing_span(self, shards: list[int], group) -> moe.RoutingSpan | None:
+        """The MoE routing span of this step's global batch over ``group``
+        (module docstring), or None: not a MoE config, or the group is one
+        rank (it holds every live shard, as on one rank)."""
+        if not self.cfg.is_moe or dist.get_world_size(group) == 1:
+            return None
+        every = sorted(s for a in self.cluster.plan.assignments for s in a.shards)
+        at = {s: i for i, s in enumerate(every)}
+        per = self.per_shard_batch * self.seq_len
+        rows = None
+        if shards:
+            rows = torch.cat([torch.arange(at[s] * per, (at[s] + 1) * per) for s in shards])
+            rows = rows.to(self.device)
+        return moe.RoutingSpan(group, rows, len(every) * per)
 
     def _whole_state(self) -> dict:
         """params, mu and nu as whole tensors; over ranks a collective of the

@@ -19,9 +19,11 @@ Both planes fold *sequentially*, ``acc = op(acc, p)`` in the order the
 schedule passes the parts. Elementwise IEEE f32 operations in the same order
 give the same bits, so on one rank the torch plane's results equal the sim
 plane's byte for byte on any f32 payload; the compression hop is bit-equal
-too (see ``optim.compression``). The torch plane takes ``np.add`` /
-``np.maximum`` / ``np.minimum`` and raises on any other op: it never drops
-to the host for a call.
+too (see ``optim.compression``). The torch plane takes the predefined MPI
+reductions the sim fold computes: ``np.add``, ``np.multiply``,
+``np.maximum``, ``np.minimum``, ``np.logical_and/or/xor`` and
+``np.bitwise_and/or/xor``, each as the torch op of the same name; it raises
+on any other callable, naming it: it never drops to the host for a call.
 
 **Ranks.** When a ``torch.distributed`` process group is initialised (see
 :func:`init_from_env`), every rank runs the same control plane from the
@@ -33,6 +35,11 @@ this rank's parts in the schedule's order and ``all_reduce``s the partial
 fold in the payload's own dtype (a rank with no part adds the op's identity),
 so integer-exact payloads stay byte-equal to the sim fold while other f32
 sums may differ in the last bits (the order across ranks is the backend's).
+The logical ops reduce 0/1 over ``uint8`` and return ``bool``, as the sim
+fold does. NCCL has no bitwise reduction, so on every backend the bitwise
+and logical-xor partials travel to every rank as bytes
+(``sharding.sum_bytes``) and fold in rank order. A reduce of one part
+returns that part, sent from its owner.
 A bcast comes from the rank that owns the root. A gather writes each node's
 payload, on its owner's rank, into a zeroed buffer that is summed as bytes
 (``sharding.sum_bytes``): every bit arrives as sent, on every backend. The
@@ -75,9 +82,18 @@ from repro_torch.dist.sharding import (
 )
 from repro_torch.optim import compression as C
 
-_TORCH_OPS = {np.add: torch.add, np.maximum: torch.maximum, np.minimum: torch.minimum}
-_DIST_OPS = {np.add: dist.ReduceOp.SUM, np.maximum: dist.ReduceOp.MAX,
-             np.minimum: dist.ReduceOp.MIN}
+# the predefined MPI reductions: numpy's op (the sim fold's), torch's
+_TORCH_OPS = {np.add: torch.add, np.multiply: torch.mul, np.maximum: torch.maximum,
+              np.minimum: torch.minimum, np.logical_and: torch.logical_and,
+              np.logical_or: torch.logical_or, np.logical_xor: torch.logical_xor,
+              np.bitwise_and: torch.bitwise_and, np.bitwise_or: torch.bitwise_or,
+              np.bitwise_xor: torch.bitwise_xor}
+_R = dist.ReduceOp
+# the ops an all_reduce computes on every backend (the logical ones over uint8
+# 0/1); the others fold every rank's partial, sent as bytes
+_DIST_OPS = {np.add: _R.SUM, np.multiply: _R.PRODUCT, np.maximum: _R.MAX, np.minimum: _R.MIN,
+             np.logical_and: _R.MIN, np.logical_or: _R.MAX}
+_LOGICAL = (np.logical_and, np.logical_or, np.logical_xor)
 
 
 def _fold(parts: list, op: Callable) -> Any:
@@ -89,8 +105,12 @@ def _fold(parts: list, op: Callable) -> Any:
 
 def _identity(like: torch.Tensor, op: Callable) -> torch.Tensor:
     """The element that leaves ``op`` unchanged, shaped like ``like``."""
-    if op is np.add:
+    if op in (np.add, np.bitwise_or, np.bitwise_xor):
         return torch.zeros_like(like)
+    if op is np.multiply:
+        return torch.ones_like(like)
+    if op is np.bitwise_and:       # every bit set
+        return ~torch.zeros_like(like)
     biggest = op is np.minimum
     if like.dtype == torch.bool:
         value = biggest
@@ -183,18 +203,32 @@ class TorchDataPlane:
     def reduce(self, parts: list, op: Callable, nodes: list | None = None) -> torch.Tensor:
         fn = _TORCH_OPS.get(op)
         if fn is None:
+            names = ", ".join(o.__name__ for o in _TORCH_OPS)
             raise ValueError(f"torch data plane: unsupported reduce op "
-                             f"{getattr(op, '__name__', op)!r} (add, maximum, minimum)")
+                             f"{getattr(op, '__name__', op)!r} ({names})")
         parts = [self.asarray(p) for p in parts]
         if not self.distributed:
             return _fold(parts, fn)
-        mine = [p for p, own in zip(parts, self._owned(nodes, len(parts))) if own]
+        owned = self._owned(nodes, len(parts))
+        if len(parts) == 1:     # the fold of one part is the part
+            return self.bcast_payload(parts[0], nodes[0])
+        mine = [p for p, own in zip(parts, owned) if own]
         if len(mine) > 1:
             acc = _fold(mine, fn)
         else:   # all_reduce works in place: never on the caller's tensor
-            acc = mine[0].clone() if mine else _identity(parts[0], op)
-        dist.all_reduce(acc, op=_DIST_OPS[op])
-        return acc
+            acc = mine[0].clone() if mine else None
+        if op in _LOGICAL:
+            acc = torch.full(parts[0].shape, op is np.logical_and, dtype=torch.uint8,
+                             device=self.device) if acc is None else (acc != 0).to(torch.uint8)
+        elif acc is None:
+            acc = _identity(parts[0], op)
+        if op in _DIST_OPS:
+            dist.all_reduce(acc, op=_DIST_OPS[op])
+        else:
+            rows = torch.zeros((self.world, *acc.shape), dtype=acc.dtype, device=self.device)
+            rows[self.rank] = acc
+            acc = _fold(list(sum_bytes(rows).unbind(0)), fn)
+        return acc.bool() if op in _LOGICAL else acc
 
     def bcast_payload(self, payload, root: int | None = None) -> torch.Tensor:
         t = self.asarray(payload)

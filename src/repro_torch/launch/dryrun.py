@@ -117,15 +117,16 @@ def _device_tracker():
     ``FakeTensorMode`` of its own; newer releases' tracker skips those ops,
     older ones count them as allocations. This one skips them in every
     release: the stand-ins here are ``meta`` tensors, so any op that runs
-    under a fake mode is DTensor's."""
+    under a fake mode is DTensor's. It skips too the ops DTensor's sharding
+    propagation runs on a cache miss (``hlo_stats.in_sharding_prop``)."""
     from torch._guards import active_fake_mode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor import DTensor
 
     class DeviceMemTracker(MemTracker):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if active_fake_mode() is not None and not any(issubclass(t, DTensor)
-                                                          for t in types):
+            if (active_fake_mode() is not None or hlo_stats.in_sharding_prop()) and \
+                    not any(issubclass(t, DTensor) for t in types):
                 return func(*args, **(kwargs or {}))
             return super().__torch_dispatch__(func, types, args, kwargs)
 

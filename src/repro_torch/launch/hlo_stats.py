@@ -18,6 +18,12 @@ local (per-device) ops DTensor runs:
     anything else 1x), where g is the size of the collective's group.
 
 Nothing is scaled by loop trips: every layer runs, so every op is seen.
+Ops that DTensor runs only to work out a placement are not the device's
+and are not counted: those under a ``FakeTensorMode`` of its own, and
+those its sharding propagation runs on a cache miss (a decomposition
+strategy runs an op's decomposition on meta tensors under a dispatch mode
+of its own; :func:`in_sharding_prop`). So a cell counts the same cold or
+after another cell has warmed the cache.
 The HLO-text parser has no torch input and is not ported: the dry-run's
 total (``CostMode.cost``) stands for ``analyze``'s.
 
@@ -151,6 +157,20 @@ def _frame_site() -> tuple[str | None, str | None]:
     return None, port
 
 
+_SHARDING_PROP = "/torch/distributed/tensor/_sharding_prop.py"
+
+
+def in_sharding_prop() -> bool:
+    """Whether DTensor's sharding propagation is on the stack: on a cache
+    miss it runs ops that work out a placement, which no device runs."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        if frame.f_code.co_filename.replace(os.sep, "/").endswith(_SHARDING_PROP):
+            return True
+        frame = frame.f_back
+    return False
+
+
 class _SiteMode(TorchFunctionMode):
     """Writes the model site of each torch call into the autograd nodes it
     made (the outputs' ``grad_fn`` and the nodes behind it back to the
@@ -252,7 +272,7 @@ class CostMode(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if active_fake_mode() is not self._fake_on_entry:
+        if active_fake_mode() is not self._fake_on_entry or in_sharding_prop():
             return out
         packet = func._overloadpacket
         ns = func.namespace

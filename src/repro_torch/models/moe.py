@@ -29,12 +29,39 @@ The reference's sharding constraints sit at its call sites: the groups
 and the expert buffers shard their group dim over the data axes
 (``shard_activations``), the expert intermediate its F dim over ``model``
 (``shard_heads``). Off a mesh they return their input.
+
+**A batch spread over ranks.** The reference routes the whole global batch
+as one program. When the trainer steps over a process group, each rank
+holds only its own shards' tokens, and a routing group may span shards on
+several ranks. Inside :func:`routing_span` ``moe_ffn`` routes the global
+batch as the reference does while each rank computes its own tokens only:
+
+  * the span names the group, the global token count ``T`` and this
+    rank's rows in the global flattened batch (the trainer's shards are
+    spread over the ranks, so the rows need not be contiguous);
+  * ``g = min(moe_group_size, T)`` and the capacity are the global batch's;
+  * each rank writes its rows of the router logits into a zero ``(n*g, E)``
+    fp32 buffer that is summed over the group (:class:`_SumOverGroup`,
+    exact: each row has one non-zero contributor, and the pad rows stay
+    ``0 @ router``); its backward is the same sum of the buffer's gradient;
+  * every rank routes the whole buffer (so ``aux``, ``z`` and ``dropped``
+    are the global means on every rank) and dispatches, runs the experts
+    on and combines only its own tokens: an expert's output for a token
+    depends on that token's row and on whether its choice was kept.
+
+Every rank of the group must run every MoE layer, forward, backward and
+any recompute, in the same order: a rank with no tokens of its own runs a
+stand-in batch (``rows`` None) that writes nothing into the buffer and
+keeps no choice. Without a span (one rank, serving, the dry-run) the code
+path is the reference's.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -46,6 +73,50 @@ class MoEMetrics(NamedTuple):
     aux_loss: torch.Tensor          # load-balance loss (scalar)
     router_z_loss: torch.Tensor     # scalar
     dropped_fraction: torch.Tensor  # scalar
+
+
+class RoutingSpan(NamedTuple):
+    """One step's global batch spread over the ranks of ``group``."""
+    group: Any                   # the process group (None: the world)
+    rows: torch.Tensor | None    # (T_local,) int64: this rank's tokens' rows in the
+    #                              global flattened batch; None: a stand-in batch
+    tokens: int                  # T, the global batch's token count
+
+
+_SPAN: RoutingSpan | None = None
+
+
+@contextlib.contextmanager
+def routing_span(span: RoutingSpan | None):
+    """``moe_ffn`` routes over ``span`` inside the block (None: as on one
+    rank). A module global, not a context variable: the autograd engine
+    runs the backward, and a checkpoint's recompute, on threads of its own,
+    so the block must hold the backward as well as the forward."""
+    global _SPAN
+    before, _SPAN = _SPAN, span
+    try:
+        yield
+    finally:
+        _SPAN = before
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """``all_reduce`` (sum) over ``group`` in the forward and of the
+    gradient in the backward: each rank's output, and so its part of the
+    loss, reads every rank's input."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 def _capacity(cfg: ModelConfig, group: int) -> int:
@@ -87,10 +158,50 @@ def _route_group(cfg: ModelConfig, router_logits: torch.Tensor, capacity: int):
     return expert_idx, slot, keep, gate_vals, aux, z, dropped
 
 
+def _expert_ffn(cfg: ModelConfig, p: dict, xe: torch.Tensor) -> torch.Tensor:
+    """The expert FFNs (the only matmuls), batched over groups: (n, E, C, D) -> same."""
+    act = activation_fn(cfg.activation)
+    h = torch.einsum("necd,edf->necf", xe, p["we_in"])
+    if cfg.gated_mlp():
+        h = act(torch.einsum("necd,edf->necf", xe, p["we_gate"])) * h
+    else:
+        h = act(h)
+    h = shard_heads(h, cfg.act_shard, head_axis=3)                # F tensor-parallel
+    return shard_activations(torch.einsum("necf,efd->necd", h, p["we_out"]), cfg.act_shard)
+
+
+def _dispatch_combine(cfg: ModelConfig, p: dict, x: torch.Tensor, route: tuple,
+                      capacity: int, group: torch.Tensor, m: int,
+                      buffer_of: torch.Tensor | None = None) -> torch.Tensor:
+    """Dispatch, the expert FFNs and combine. x: (..., D) tokens; ``route``
+    their (expert_idx, slot, keep, gates), each (..., k); ``group`` (...,
+    or broadcastable) each token's group in the expert buffer of ``m``
+    groups, which is ``buffer_of.new_zeros`` (default ``x``: on a mesh the
+    buffer takes that tensor's placement). Returns (..., D): each token's
+    gate-weighted expert outputs."""
+    expert_idx, slot, keep, gates = route
+    D, C = x.shape[-1], capacity
+    sink = cfg.n_experts * C                       # the per-group sink row
+    # rows of the (m * (E*C + 1), D) buffer, group by group
+    rows = (torch.where(keep, expert_idx * C + slot, sink)
+            + (group * (sink + 1))[..., None]).reshape(-1)
+    src = x[..., None, :].expand(*keep.shape, D).reshape(-1, D)
+    xe = (x if buffer_of is None else buffer_of).new_zeros((m * (sink + 1), D))
+    xe = xe.index_copy(0, rows, src)
+    xe = xe.reshape(m, sink + 1, D)[:, :sink].reshape(m, cfg.n_experts, C, D)
+    ye = _expert_ffn(cfg, p, shard_activations(xe, cfg.act_shard))
+    ye_flat = torch.cat([ye.reshape(m, sink, D), ye.new_zeros((m, 1, D))], dim=1)
+    y_tk = ye_flat.reshape(m * (sink + 1), D)[rows].reshape(*keep.shape, D)
+    w = (gates * keep.to(gates.dtype)).to(x.dtype)
+    return torch.einsum("...k,...kd->...d", w, y_tk)
+
+
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, MoEMetrics]:
     """x: (T, D) -> (T, D). p: router (D,E) fp32, we_in/we_gate (E,D,F), we_out (E,F,D)."""
+    if _SPAN is not None:
+        return _moe_ffn_spanned(cfg, p, x, _SPAN)
     T, D = x.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
+    E = cfg.n_experts
     g = min(cfg.moe_group_size, T)
     n = (T + g - 1) // g
     if n * g > T:
@@ -98,7 +209,6 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
     # batched (not looped) groups; the group dim shards over the data axes
     xg = shard_activations(x.reshape(n, g, D), cfg.act_shard)
     C = _capacity(cfg, g)
-    sink = E * C                                   # the per-group sink row
 
     # (n*g, D) @ (D, E): a product with no batch dims, as the reference's einsum
     logits = (x.float() @ p["router"].float()).reshape(n, g, E)
@@ -107,29 +217,38 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
     # each device holds whole groups, as in training and prefill, these are
     # the logits themselves
     logits = unsplit(logits, 1)
-    expert_idx, slot, keep, gates, aux, z, dropped = _route_group(cfg, logits, C)
-    # rows of the (n * (E*C + 1), D) buffer, group by group
-    base = (torch.arange(n, device=x.device) * (sink + 1))[:, None, None]
-    rows = (torch.where(keep, expert_idx * C + slot, sink) + base).reshape(-1)   # (n*g*k,)
-    src = xg[:, :, None, :].expand(n, g, k, D).reshape(n * g * k, D)
-    xe = x.new_zeros((n * (sink + 1), D)).index_copy(0, rows, src)
-    xe = xe.reshape(n, sink + 1, D)[:, :sink].reshape(n, E, C, D)
-    xe = shard_activations(xe, cfg.act_shard)
+    *route, aux, z, dropped = _route_group(cfg, logits, C)
+    y = _dispatch_combine(cfg, p, xg, route, C, torch.arange(n, device=x.device)[:, None], n,
+                          buffer_of=x)
+    return y.reshape(n * g, D)[:T], MoEMetrics(aux.mean(), z.mean(), dropped.mean())
 
-    # ---- expert FFNs (the only matmuls), batched over groups ----
-    act = activation_fn(cfg.activation)
-    h = torch.einsum("necd,edf->necf", xe, p["we_in"])
-    if cfg.gated_mlp():
-        h = act(torch.einsum("necd,edf->necf", xe, p["we_gate"])) * h
+
+def _moe_ffn_spanned(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     span: RoutingSpan) -> tuple[torch.Tensor, MoEMetrics]:
+    """``moe_ffn`` of this rank's tokens ``x`` (T_local, D) as rows
+    ``span.rows`` of the global batch (module docstring)."""
+    n_local = x.shape[0]
+    E, k = cfg.n_experts, cfg.experts_per_token
+    g = min(cfg.moe_group_size, span.tokens)
+    n = (span.tokens + g - 1) // g
+    C = _capacity(cfg, g)
+
+    logits = x.float() @ p["router"].float()                      # (T_local, E)
+    if span.rows is None:      # a stand-in: writes no row, keeps no choice
+        at = torch.zeros(n_local, dtype=torch.int64, device=x.device)
+        written, logits = at[:0], logits[:0]
     else:
-        h = act(h)
-    h = shard_heads(h, cfg.act_shard, head_axis=3)                # F tensor-parallel
-    ye = shard_activations(torch.einsum("necf,efd->necd", h, p["we_out"]), cfg.act_shard)
-
-    ye_flat = torch.cat([ye.reshape(n, sink, D), ye.new_zeros((n, 1, D))], dim=1)
-    y_tk = ye_flat.reshape(n * (sink + 1), D)[rows].reshape(n, g, k, D)
-    w = (gates * keep.to(gates.dtype)).to(x.dtype)
-    y = torch.einsum("ngk,ngkd->ngd", w, y_tk).reshape(n * g, D)[:T]
+        at = written = span.rows
+    whole = logits.new_zeros((n * g, E)).index_copy(0, written, logits)
+    whole = _SumOverGroup.apply(whole, span.group).reshape(n, g, E)
+    *route, aux, z, dropped = _route_group(cfg, whole, C)
+    expert_idx, slot, keep, gates = (t.reshape(n * g, k)[at] for t in route)
+    if span.rows is None:
+        keep = torch.zeros_like(keep)
+    # the expert buffer holds the groups this rank's tokens lie in, in order
+    used, group_of = torch.unique(at // g, return_inverse=True)
+    y = _dispatch_combine(cfg, p, x, (expert_idx, slot, keep, gates), C, group_of,
+                          used.numel())
     return y, MoEMetrics(aux.mean(), z.mean(), dropped.mean())
 
 

@@ -344,3 +344,40 @@ def test_steps_on_a_one_rank_mesh_match_the_plain_steps():
     assert sorted(got) == sorted(f"{a}/{k}" for a in archs for k in ("train", "prefill", "decode"))
     for name, rec in got.items():
         assert rec["n"] > 0 and rec["same"], name
+
+
+# the smoke mixtral prefill cell cold, a train cell of the same token count,
+# the prefill cell again (DTensor's sharding cache then warm), in one fresh
+# process on the mini mesh
+_COLD_WARM = textwrap.dedent("""
+    import json
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_named_mesh
+
+    dryrun.fake_group(8)
+    mesh = make_named_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    cfg = get_smoke_config("mixtral-8x22b")
+    out = []
+    for kind in ("prefill", "train", "prefill"):
+        m = dryrun.dryrun_step(cfg, ShapeSpec(f"mini_{kind}", 64, 8, kind), mesh)
+        out.append({"kind": kind, "bytes": m["cost"].bytes, "flops": m["cost"].flops,
+                    "wire": m["cost"].coll.total_wire_bytes, "peak": m["peak_bytes"]})
+    print(json.dumps(out))
+""")
+
+
+def test_moe_prefill_counts_the_same_cold_and_warm():
+    """The ops DTensor's sharding propagation runs on a cache miss are not
+    the device's: the prefill cell's bytes, FLOPs, wire bytes and peak are
+    the same in a fresh process and after a train cell has warmed the
+    cache."""
+    proc = subprocess.run([sys.executable, "-c", _COLD_WARM], env=_env(False),
+                          capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    cold, train, warm = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (cold["kind"], train["kind"], warm["kind"]) == ("prefill", "train", "prefill")
+    assert cold["bytes"] > 0 and cold["flops"] > 0 and cold["wire"] > 0
+    for key in ("bytes", "flops", "wire", "peak"):
+        assert cold[key] == warm[key], key

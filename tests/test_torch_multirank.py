@@ -236,8 +236,8 @@ def _check_campaign(got: list[dict], want: list[dict], ctx: str, *, exact: bool)
         c = f"{ctx} step {w['step']}"
         assert g["nodes"] == w["nodes"], f"{c}: topologies diverged"
         assert g["repair_rounds"] == w["repair_rounds"], f"{c}: repair rounds diverged"
-        for op in ("allreduce", "bcast", "reduce"):
-            if op in w:
+        for op in w:
+            if op.split(":")[0] in ("allreduce", "bcast", "reduce"):
                 _check_op(g[op], w[op], f"{c} {op}", exact=exact)
         if "gather" in w:
             assert set(g["gather"]) == set(w["gather"]), f"{c}: gather membership"
@@ -275,6 +275,19 @@ def test_campaign_int8_hop_bytes_world4(runs, reference_campaigns):
         _check_campaign(got["sim"], want, f"rank {rank} int8 sim vs reference", exact=True)
 
 
+def test_campaign_mpi_ops_world4(runs, reference_campaigns):
+    """multiply, the logical and the bitwise ops on int32 payloads: on every
+    rank every allreduce and reduce byte-equal to the JAX package's records,
+    dtypes included (the logical ops' bool), and to the port's sim plane's."""
+    want = reference_campaigns["mpi_ops"]
+    assert want[-1]["repair_rounds"] >= 2
+    assert want[0]["allreduce:logical_and"]["data"][0].dtype == np.bool_
+    for rank, out in enumerate(runs["campaign"]):
+        got = out["campaigns"]["mpi_ops"]
+        _check_campaign(got["torch"], want, f"rank {rank} mpi_ops vs reference", exact=True)
+        _check_campaign(got["sim"], want, f"rank {rank} mpi_ops sim vs reference", exact=True)
+
+
 def test_campaign_f32_world4(runs, reference_campaigns):
     """Random f32 payloads: stages and clock equal, results within 2e-5 of
     the JAX package's sequential fold on every rank."""
@@ -294,7 +307,7 @@ def test_control_plane_equal_across_ranks(runs):
         for name, sides in first["campaigns"].items():
             _check_campaign(out["campaigns"][name]["torch"], sides["torch"],
                             f"rank {rank} {name} vs rank 0",
-                            exact=name in rank_program.CAMPAIGN_MODES)
+                            exact=name in (*rank_program.CAMPAIGN_MODES, "mpi_ops"))
 
 
 def test_auto_plane_and_trainer_steps_world4(runs):

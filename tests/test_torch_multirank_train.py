@@ -14,10 +14,12 @@ Three groups of processes start once for the module, all at once:
 - torchrun starts ``python -m repro_torch.launch.train --device cpu
   --backend gloo`` on four ranks with the smoke config and ``--fail 2:1``;
 - four ranks (``... train_moe``) train mixtral-8x22b's and grok-1-314b's
-  smoke configs in f32 through ``MOE_RUN`` (three steps through fault
-  (1, 1)): their routing group (64 tokens) is a shard's 2 x 32 tokens, so
-  the aux and router z losses, means over groups, sum from the ranks'
-  parts; on shards of 32 tokens the trainer refuses the config.
+  smoke configs in f32 through each ``MOE_CASES`` run (three steps through
+  fault (1, 1)): the routing group (64 tokens) a shard's 2 x 32 tokens;
+  spanning two shards on two ranks (shards of 32 tokens); cutting shards
+  in the middle, the last group padded after the fault (shards of 24); the
+  published group, 4096, one group of every live token; and mixtral's
+  spanning case again under ``remat="full"``.
 
 Meanwhile this process runs the same runs through the JAX package's
 trainer (under ``test_torch_runtime``'s stand-in for its uncommitted
@@ -30,8 +32,13 @@ oracle. Tolerances: integers exact; loss and grad norm within
 but 0.1% of each leaf's elements and within 2 x lr x steps on every one
 (an element whose summed gradient is near zero may take an Adam step of
 the other sign; measured: 1.1e-6 at most); bit for bit at world size 1.
-The MoE runs are held to the same tolerances, their routing metrics (aux
-loss, router z, dropped fraction) with the loss.
+The MoE run whose group divides a shard is held to the same tolerances,
+its routing metrics (aux loss, router z, dropped fraction) with the loss;
+the runs whose groups span ranks are held to the reference within 1e-5
+(loss, grad norm, aux loss, router z), the dropped fraction's count of
+kept choices exactly (the fraction itself is a mean over groups, whose
+last bit XLA's compiled division and the port's eager one may round
+apart), the final params to the reference's as the one-rank run's above.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import os
 import pickle
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -95,12 +103,12 @@ def _reference_run(R, jcfg, init, name, workdir, spec=None) -> dict:
     ck = R.LegionCheckpointer(str(workdir / f"ref_ckpt_{name}")) if "restore" in spec else None
     tc = JaxTrainConfig(**rank_program.TRAIN_TC,
                         checkpoint_every=rank_program.CHECKPOINT_EVERY if ck else 0)
-    cl = R.VirtualCluster(rank_program.TRAIN_NODES,
+    cl = R.VirtualCluster(spec.get("nodes", rank_program.TRAIN_NODES),
                           policy=R.LegioPolicy(legion_size=rank_program.TRAIN_LEGION,
                                                **spec["policy"]),
                           injector=R.FaultInjector.at(spec["faults"]))
-    tj = R.ResilientTrainer(jcfg, tc, cl, per_shard_batch=rank_program.PER_SHARD_BATCH,
-                            seq_len=rank_program.SEQ_LEN, checkpointer=ck)
+    batch, seq = spec.get("shard", (rank_program.PER_SHARD_BATCH, rank_program.SEQ_LEN))
+    tj = R.ResilientTrainer(jcfg, tc, cl, per_shard_batch=batch, seq_len=seq, checkpointer=ck)
     for key, leaf in _flat(jax.tree.map(np.asarray, tj.params)):
         assert np.array_equal(leaf, init[key]), key     # the ranks' weights
     reports = rank_program.drive(tj, spec, ck)
@@ -108,7 +116,8 @@ def _reference_run(R, jcfg, init, name, workdir, spec=None) -> dict:
         ck.close()
     batch, _ = tj._global_batch(tj.step - 1)
     return {"reports": [rank_program.report_record(r) for r in reports],
-            "live_nodes": list(cl.live_nodes), "last_tokens": np.asarray(batch["tokens"])}
+            "live_nodes": list(cl.live_nodes), "last_tokens": np.asarray(batch["tokens"]),
+            "final": {f"params/{k}": v for k, v in _flat(jax.tree.map(np.asarray, tj.params))}}
 
 
 def _one_rank_run(pcfg, init_tree, name, workdir, spec=None) -> dict:
@@ -152,6 +161,12 @@ def runs(tmp_path_factory):
         env=dict(base, RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
                  MASTER_PORT=str(_free_port())),
         cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the MoE references, one process an arch beside the ranks
+    for arch in rank_program.MOE_ARCHS:
+        procs[("moe_reference", arch)] = subprocess.Popen(
+            [sys.executable, __file__, "moe-reference", arch, str(workdir)],
+            env=dict(base, JAX_PLATFORMS="cpu"),
+            cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          f"--nproc-per-node={WORLD}", "-m", "repro_torch.launch.train", "--device", "cpu",
@@ -165,17 +180,13 @@ def runs(tmp_path_factory):
 
             loaded["reference"] = {name: _reference_run(R, jcfg, init, name, workdir)
                                    for name in RUNS}
-            loaded["moe_reference"] = {
-                arch: _reference_run(R, rank_program.moe_config(arch, jax_registry),
-                                     moe_init[arch], arch, workdir, rank_program.MOE_RUN)
-                for arch in rank_program.MOE_ARCHS}
         init_tree = rank_program.unflatten({f"init/{k}": v for k, v in init.items()}, "init/")
         loaded["one"] = {name: _one_rank_run(pcfg, init_tree, name, workdir) for name in RUNS}
         loaded["moe_one"] = {
             arch: _one_rank_run(rank_program.moe_config(arch, port_registry),
                                 rank_program.unflatten({f"i/{k}": v for k, v in
                                                         moe_init[arch].items()}, "i/"),
-                                arch, workdir, rank_program.MOE_RUN)
+                                arch, workdir, rank_program.MOE_CASES["divides"])
             for arch in rank_program.MOE_ARCHS}
         loaded["cli_one"] = _one_rank_cli()
         failures = []
@@ -193,12 +204,38 @@ def runs(tmp_path_factory):
                 proc.communicate()
     assert not failures, "\n".join(failures)
     loaded["cli_out"] = cli_out
+    loaded["moe_reference"] = {}
+    for arch in rank_program.MOE_ARCHS:
+        with open(workdir / f"moe_reference.{arch}.pkl", "rb") as f:
+            loaded["moe_reference"].update(pickle.load(f))
     for case, world in (("train", WORLD), ("train1", 1), ("train_moe", WORLD)):
         loaded[case] = []
         for rank in range(world):
             with open(workdir / f"{case}.rank{rank}.pkl", "rb") as f:
                 loaded[case].append(pickle.load(f))
     return loaded
+
+
+def moe_reference_worker(arch: str, workdir: Path) -> None:
+    """The MOE_RUNS of ``arch`` through the JAX package's trainer under the
+    stand-in data plane, in a process of its own
+    (``python tests/test_torch_multirank_train.py moe-reference ARCH
+    WORKDIR``); pickles their records by (arch, case)."""
+    sys.modules["repro.dist.dataplane"] = _stand_in_module()
+    import repro.core as R
+
+    inputs = dict(np.load(workdir / "inputs.npz"))
+    prefix = f"moe/{arch}/init/"
+    init = {k[len(prefix):]: v for k, v in inputs.items() if k.startswith(prefix)}
+    out = {}
+    for a, case in rank_program.MOE_RUNS:
+        if a == arch:
+            spec = rank_program.MOE_CASES[case]
+            out[arch, case] = _reference_run(
+                R, rank_program.moe_config(arch, jax_registry, spec["fields"]), init,
+                f"{arch}-{case}", workdir, spec)
+    with open(workdir / f"moe_reference.{arch}.pkl", "wb") as f:
+        pickle.dump(out, f)
 
 
 def _one_rank_cli() -> dict:
@@ -402,42 +439,114 @@ def _close(got: list[dict], want: list[dict], tol: float, label: str) -> None:
 
 @pytest.mark.parametrize("arch", rank_program.MOE_ARCHS)
 def test_moe_world4_matches_reference(runs, arch):
-    """Each rank's reports against the JAX package's trainer on one device:
-    the integers equal, loss, grad norm and the routing metrics within
-    TRAJECTORY_TOL."""
-    want = runs["moe_reference"][arch]["reports"]
+    """Each rank's reports against the JAX package's trainer on one device,
+    the group a shard's tokens: the integers equal, loss, grad norm and the
+    routing metrics within TRAJECTORY_TOL."""
+    want = runs["moe_reference"][arch, "divides"]["reports"]
     assert any(r["repair"] is not None for r in want)
     for rank, out in enumerate(runs["train_moe"]):
-        got = out[arch]
+        got = out[arch, "divides"]
         assert got["distributed"]
         assert _integers(got["reports"]) == _integers(want), (rank, arch)
         _close(got["reports"], want, TRAJECTORY_TOL, f"rank {rank} {arch}")
 
 
+def _final_close(got: dict, want: dict, label: str) -> None:
+    """The final params within the module's stated tolerance."""
+    lr, steps = rank_program.TRAIN_TC["learning_rate"], rank_program.MOE_RUN["steps"]
+    assert set(got) == set(want)
+    for key, w in want.items():
+        diff = np.abs(got[key] - w)
+        assert diff.max() <= 2 * lr * steps, (label, key, diff.max())
+        assert np.mean(diff > PARAM_ATOL) <= PARAM_OUTLIERS, (label, key)
+
+
 @pytest.mark.parametrize("arch", rank_program.MOE_ARCHS)
 def test_moe_world4_matches_one_rank(runs, arch):
-    """The four ranks against the port's trainer on one rank: the integers
-    equal, loss, grad norm and the routing metrics within 1e-5, every rank's
-    reports the same, the final params within the module's tolerance."""
+    """The four ranks against the port's trainer on one rank, the group a
+    shard's tokens: the integers equal, loss, grad norm and the routing
+    metrics within 1e-5, every rank's reports the same, the final params
+    within the module's tolerance."""
     one = runs["moe_one"][arch]
-    lr, steps = rank_program.TRAIN_TC["learning_rate"], len(one["reports"])
-    first = runs["train_moe"][0][arch]["reports"]
+    first = runs["train_moe"][0][arch, "divides"]["reports"]
     for rank, out in enumerate(runs["train_moe"]):
-        got = out[arch]
+        got = out[arch, "divides"]
         assert got["reports"] == first, (rank, arch)
         assert _integers(got["reports"]) == _integers(one["reports"])
         _close(got["reports"], one["reports"], ONE_RANK_TOL, f"rank {rank} {arch}")
-        assert set(got["final"]) == set(one["final"])
-        for key, want in one["final"].items():
-            diff = np.abs(got["final"][key] - want)
-            assert diff.max() <= 2 * lr * steps, (rank, arch, key, diff.max())
-            assert np.mean(diff > PARAM_ATOL) <= PARAM_OUTLIERS, (rank, arch, key)
+        _final_close(got["final"], one["final"], f"rank {rank} {arch}")
 
 
-@pytest.mark.parametrize("arch", rank_program.MOE_ARCHS)
-def test_moe_refused_where_the_group_does_not_divide_a_shard(runs, arch):
-    for out in runs["train_moe"]:
-        msg = out[arch]["refused"]
-        assert msg is not None and msg.startswith(f"{arch.split('-')[0]}-smoke over 4 ranks")
-        assert "moe_group_size 64 does not divide a shard's per_shard_batch x seq_len = " \
-            "1 x 32 tokens" in msg
+# (T before the fault, T after, g): the global tokens of 8 and of 7 live
+# shards and the routing group the reference forms over them
+MOE_GROUPS = {"spans": (256, 224, 64), "cuts": (192, 168, 64),
+              "published": (256, 224, 256), "spans_remat": (256, 224, 64),
+              "stand_in": (96, 64, 64)}
+
+
+def _kept_choices(report: dict, cfg, tokens: int) -> int:
+    """The count of kept expert choices behind ``report``'s dropped fraction:
+    ``1 - kept / choices`` with the choices every layer's groups hold,
+    padding included."""
+    g = min(cfg.moe_group_size, tokens)
+    choices = cfg.n_layers * -(-tokens // g) * g * cfg.experts_per_token
+    kept = (1.0 - report["metrics"]["dropped"]) * choices
+    assert abs(kept - round(kept)) < 1e-3, (kept, choices)
+    return round(kept)
+
+
+def _moe_spanning(runs, arch: str, case: str) -> None:
+    """Every rank's reports equal; the integers (steps, shards, recompiles,
+    repair summaries) and each step's count of kept choices equal to the
+    reference's; loss, grad norm, aux loss and router z within 1e-5 of it;
+    the final params as the module states."""
+    spec = rank_program.MOE_CASES[case]
+    want = runs["moe_reference"][arch, case]
+    batch, seq = spec["shard"]
+    before, after, g = MOE_GROUPS[case]
+    shards = [r["active_shards"] for r in want["reports"]]
+    assert (shards[0] * batch * seq, shards[-1] * batch * seq) == (before, after)
+    cfg = rank_program.moe_config(arch, port_registry, spec["fields"])
+    assert g == min(cfg.moe_group_size, before)
+
+    def kept(reports):
+        return [_kept_choices(r, cfg, r["active_shards"] * batch * seq) for r in reports]
+
+    assert any(r["repair"] is not None for r in want["reports"])
+    first = runs["train_moe"][0][arch, case]["reports"]
+    for rank, out in enumerate(runs["train_moe"]):
+        got = out[arch, case]
+        label = f"rank {rank} {arch} {case}"
+        assert got["distributed"]
+        assert got["reports"] == first, label
+        assert _integers(got["reports"]) == _integers(want["reports"]), label
+        _close(got["reports"], want["reports"], ONE_RANK_TOL, label)
+        assert kept(got["reports"]) == kept(want["reports"]), label
+        _final_close(got["final"], want["final"], label)
+
+
+@pytest.mark.parametrize("arch,case", [(a, c) for a, c in rank_program.MOE_RUNS
+                                       if c in ("spans", "cuts", "published")])
+def test_moe_world4_groups_span_ranks(runs, arch, case):
+    """A routing group over shards of several ranks: (a) each group two
+    shards on two ranks, (b) groups cutting shards, the last padded after
+    the fault, (c) the published group, one of every live token."""
+    _moe_spanning(runs, arch, case)
+
+
+def test_moe_world4_groups_span_ranks_remat_full(runs):
+    """Case (a) with every layer recomputed in the backward: each layer's
+    logit sum runs again there, in the same order on every rank."""
+    _moe_spanning(runs, rank_program.MOE_ARCHS[0], "spans_remat")
+
+
+def test_moe_world4_stand_in_member(runs):
+    """Case (a) on 3 nodes: at step 0 rank 3 holds no shard but is in the
+    group, and joins every layer's sums with a stand-in shard."""
+    _moe_spanning(runs, rank_program.MOE_ARCHS[0], "stand_in")
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["moe-reference"]:
+        sys.exit(f"usage: {sys.argv[0]} moe-reference ARCH WORKDIR")
+    moe_reference_worker(sys.argv[2], Path(sys.argv[3]))

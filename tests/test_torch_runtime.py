@@ -418,12 +418,54 @@ def test_plane_bcast_gather_and_asarray():
 
 
 def test_torch_plane_raises_on_unsupported_op():
-    plane = PD.TorchDataPlane("cpu")
-    with pytest.raises(ValueError, match="subtract"):
-        plane.reduce([torch.ones(3), torch.ones(3)], np.subtract)
-    sess = PM.Session(8, policy=P.LegioPolicy(legion_size=4), device="cpu")
-    with pytest.raises(ValueError, match="multiply"):
-        sess.world.allreduce({m: torch.ones(2) for m in sess.world.members}, np.multiply)
+    """A callable that is not a predefined MPI reduction raises, naming itself."""
+    for op in (np.subtract, lambda a, b: a + b):
+        plane = PD.TorchDataPlane("cpu")
+        with pytest.raises(ValueError, match=op.__name__):
+            plane.reduce([torch.ones(3), torch.ones(3)], op)
+        sess = PM.Session(8, policy=P.LegioPolicy(legion_size=4), device="cpu")
+        with pytest.raises(ValueError, match=op.__name__):
+            sess.world.allreduce({m: torch.ones(2) for m in sess.world.members}, op)
+
+
+# the predefined MPI reductions beyond add, maximum and minimum
+MPI_OPS = [np.multiply, np.logical_and, np.logical_or, np.logical_xor, np.bitwise_and,
+           np.bitwise_or, np.bitwise_xor]
+
+
+def op_payload(node, step):
+    """Small int32 values with zeros among them (the logical ops' False)."""
+    return np.random.default_rng(100 * step + node).integers(-3, 4, 8).astype(np.int32)
+
+
+def run_op_session(pkg, op, steps=5):
+    """``Session(8)`` through a shrink (a member at step 2, a master at
+    step 3): each step an allreduce and a reduce with ``op`` of every live
+    member's payload, and an allreduce of one member's alone."""
+    sess = pkg.mpi.Session(8, policy=pkg.core.LegioPolicy(legion_size=4, **pkg.policy_extra),
+                           injector=pkg.core.FaultInjector.at([(2, 5), (3, 0)]),
+                           **pkg.cluster_extra)
+    comm, cl = sess.world, sess.cluster
+    trace = []
+    for step in range(steps):
+        rep = sess.advance(step)
+        live = [m for m in comm.members if m not in cl.failed]
+        contrib = {m: pkg.to_payload(op_payload(m, step)) for m in live}
+        trace.append((norm(rep), norm(comm.allreduce(contrib, op)),
+                      norm(comm.reduce(contrib, root=comm.members[-1], op=op)),
+                      norm(comm.allreduce({live[0]: contrib[live[0]]}, op)),
+                      topo_fingerprint(cl)))
+    return trace
+
+
+@pytest.mark.parametrize("op", MPI_OPS, ids=lambda o: o.__name__)
+def test_torch_plane_mpi_ops_match_reference(reference, op):
+    """The torch plane (CPU tensors) against the reference ``Session`` on
+    the sim contract: every result byte-equal, dtypes included (``bool``
+    where the fold of two or more parts is a logical op's)."""
+    ref = run_op_session(REF, op)
+    assert_traces_equal(ref, run_op_session(PORT_TORCH, op), op.__name__)
+    assert any(r[1] != r[3] for r in ref)
 
 
 def test_policy_and_plane_selection():

@@ -36,6 +36,8 @@ CAMPAIGN_MODES = {
 }
 STEPS = 7
 ALL_OPS = ("allreduce", "bcast", "reduce", "gather")
+MPI_OPS = (np.multiply, np.logical_and, np.logical_or, np.logical_xor, np.bitwise_and,
+           np.bitwise_or, np.bitwise_xor)
 
 
 def _np(x) -> np.ndarray:
@@ -60,6 +62,10 @@ def campaigns(inputs: dict) -> dict:
                    ("allreduce",), True)
     out["f32"] = ({}, lambda step, m: g_f32[(step * 16 + m + 1) % 64], ("allreduce", "reduce"),
                   False)
+    # the predefined MPI reductions beyond add on int32 payloads with zeros
+    # among them (the logical ops' False): allreduce and reduce with each
+    out["mpi_ops"] = ({}, lambda step, m: ((np.arange(8) * (m + 3) + step) % 5 - 2).astype(
+        np.int32), tuple((kind, op) for op in MPI_OPS for kind in ("allreduce", "reduce")), False)
     return out
 
 
@@ -80,7 +86,14 @@ def run_campaign(core, mpi, spec, *, policy_extra=None, session_extra=None) -> l
         out = {"step": step, "nodes": list(cl.topo.nodes)}
         root = sorted(comm.members)[0]
         for op in ops:
-            if op == "allreduce":
+            if isinstance(op, tuple):     # (allreduce or reduce, numpy op)
+                kind, fn = op
+                key = f"{kind}:{fn.__name__}"
+                if kind == "allreduce":
+                    out[key] = _result(comm.allreduce(contrib, fn))
+                else:
+                    out[key] = _result(comm.reduce(contrib, root=root, op=fn))
+            elif op == "allreduce":
                 out[op] = _result(comm.allreduce(contrib))
             elif op == "bcast":
                 out[op] = _result(comm.bcast(payload(step, -1), root=root))
@@ -245,16 +258,38 @@ TRAIN_RUNS = {
 }
 
 
-# MoE over ranks: each arch's smoke config in f32 (its moe_group_size, 64,
-# divides a shard's PER_SHARD_BATCH x SEQ_LEN = 64 tokens) for three steps
-# through one fault; the same config on shards of 32 tokens is refused
+# MoE over ranks: each arch's smoke config in f32 for three steps through
+# one fault, 8 nodes on four ranks (node n on rank n % 4), in each routing
+# case: name -> (per-shard batch, sequence) and config fields. The smoke
+# configs route in groups of 64 tokens.
 MOE_ARCHS = ("mixtral-8x22b", "grok-1-314b")
 MOE_RUN = dict(faults=[(1, 1)], policy={}, steps=3)
+MOE_CASES = {
+    # a group is one shard's 2 x 32 tokens
+    "divides": dict(MOE_RUN, shard=(2, 32), fields={}),
+    # (a) each group spans two shards, on two ranks
+    "spans": dict(MOE_RUN, shard=(1, 32), fields={}),
+    # (b) groups cut shards in the middle; after the fault T = 168 pads the last
+    "cuts": dict(MOE_RUN, shard=(1, 24), fields={}),
+    # (c) the published group, 4096: one group of all the live tokens, g = T
+    "published": dict(MOE_RUN, shard=(1, 32), fields={"moe_group_size": 4096}),
+    # (a) with every layer recomputed in the backward, its sums over the ranks too
+    "spans_remat": dict(MOE_RUN, shard=(1, 32), fields={"remat": "full"}),
+    # (a) on 3 nodes: at step 0 rank 3 holds no node but is in the group (no
+    # repair has built a mesh yet), so it runs a stand-in shard
+    "stand_in": dict(MOE_RUN, shard=(1, 32), fields={}, nodes=3),
+}
+# (arch, case) pairs the ranks run: every case of both archs, the last two
+# of mixtral only
+MOE_RUNS = tuple((arch, case) for arch in MOE_ARCHS for case in MOE_CASES
+                 if case not in ("spans_remat", "stand_in") or arch == MOE_ARCHS[0])
 
 
-def moe_config(arch: str, module):
-    """``arch``'s smoke config in f32 from a package's ``configs.registry``."""
-    return module.get_smoke_config(arch).replace(dtype="float32", param_dtype="float32")
+def moe_config(arch: str, module, fields: dict | None = None):
+    """``arch``'s smoke config in f32 from a package's ``configs.registry``,
+    with ``fields`` replaced."""
+    return module.get_smoke_config(arch).replace(dtype="float32", param_dtype="float32",
+                                                 **(fields or {}))
 
 
 def report_record(r) -> dict:
@@ -306,19 +341,22 @@ def unflatten(flat: dict, prefix: str) -> dict:
 
 
 def port_trainer(cfg, spec: dict, init: dict, plane: str, ckpt=None):
-    """The port's trainer on the CPU for run ``spec``, its weights the
-    reference's ``init`` (a numpy tree) and fresh AdamW moments."""
+    """The port's trainer on the CPU for run ``spec`` (``spec["nodes"]``
+    nodes, by default TRAIN_NODES, on shards of ``spec["shard"]``, by
+    default PER_SHARD_BATCH x SEQ_LEN), its weights
+    the reference's ``init`` (a numpy tree) and fresh AdamW moments."""
     from repro_torch import core as P
     from repro_torch.configs.base import TrainConfig
     from repro_torch.models.convert import params_from_reference
     from repro_torch.optim import adamw_init
 
-    cl = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION,
+    cl = P.VirtualCluster(spec.get("nodes", TRAIN_NODES),
+                          policy=P.LegioPolicy(legion_size=TRAIN_LEGION,
                                                             data_plane=plane, **spec["policy"]),
                           injector=P.FaultInjector.at(spec["faults"]), device="cpu")
     tc = TrainConfig(**TRAIN_TC, checkpoint_every=CHECKPOINT_EVERY if ckpt else 0)
-    tr = P.ResilientTrainer(cfg, tc, cl, per_shard_batch=PER_SHARD_BATCH, seq_len=SEQ_LEN,
-                            checkpointer=ckpt)
+    batch, seq = spec.get("shard", (PER_SHARD_BATCH, SEQ_LEN))
+    tr = P.ResilientTrainer(cfg, tc, cl, per_shard_batch=batch, seq_len=seq, checkpointer=ckpt)
     tr.params = params_from_reference(cfg, init, device="cpu")
     tr.opt = adamw_init(tr.params)
     return tr
@@ -402,31 +440,20 @@ def case_train(rank: int, world: int, inputs: dict) -> dict:
 
 
 def case_train_moe(rank: int, world: int, inputs: dict) -> dict:
-    """World 4: each MOE_ARCHS smoke config through MOE_RUN on the torch plane
-    over the group (its reports and final params), and the message that
-    refuses it on shards whose tokens its routing group does not divide."""
-    from repro_torch import core as P
+    """World 4: each MOE_RUNS (arch, case) through its MOE_CASES run on the
+    torch plane over the group: its reports and final params."""
     from repro_torch.configs import registry
-    from repro_torch.configs.base import TrainConfig
 
     out = {}
-    for arch in MOE_ARCHS:
-        cfg = moe_config(arch, registry)
-        tr = port_trainer(cfg, MOE_RUN, unflatten(inputs, f"moe/{arch}/init/"), "torch")
-        reports = [report_record(r) for r in drive(tr, MOE_RUN)]
-        out[arch] = {"distributed": tr.distributed, "reports": reports,
-                     "final": {k: v["whole"] for k, v in _state_seen(tr).items()
-                               if k.startswith("params")}}
+    for arch, case in MOE_RUNS:
+        spec = MOE_CASES[case]
+        tr = port_trainer(moe_config(arch, registry, spec["fields"]), spec,
+                          unflatten(inputs, f"moe/{arch}/init/"), "torch")
+        reports = [report_record(r) for r in drive(tr, spec)]
+        out[arch, case] = {"distributed": tr.distributed, "reports": reports,
+                           "final": {k: v["whole"] for k, v in _state_seen(tr).items()
+                                     if k.startswith("params")}}
         del tr
-        cl = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION,
-                                                                data_plane="torch"),
-                              device="cpu")
-        try:
-            P.ResilientTrainer(cfg, TrainConfig(**TRAIN_TC), cl, per_shard_batch=1,
-                               seq_len=SEQ_LEN)
-            out[arch]["refused"] = None
-        except NotImplementedError as e:
-            out[arch]["refused"] = str(e)
     return out
 
 
