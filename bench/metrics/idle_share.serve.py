@@ -1,0 +1,9 @@
+"""The share of a steady round in which no operation runs on the card:
+the profiled rounds' device-busy time (the union of the trace's operations)
+over the median wall of the window's steady rounds that were not profiled
+(``harness.idle_share``)."""
+from bench import harness
+
+
+def read(trace, ctx):
+    return harness.idle_share(trace, trace["rounds"])

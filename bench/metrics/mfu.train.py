@@ -1,0 +1,9 @@
+"""Model FLOPs (``bench/flops.py``) over the wall of the window's steady
+steps (neither the repair's nor the profiled ones), as a share of the
+card's bf16 peak."""
+from bench import harness, roofline
+
+
+def read(trace, ctx):
+    rate = harness.steady_rate(trace, trace["steps"])
+    return None if rate is None else 100.0 * rate / roofline.PEAK_BF16_FLOPS
