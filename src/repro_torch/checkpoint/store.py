@@ -32,12 +32,13 @@ import os
 import queue
 import tempfile
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch import tracing
 
 PyTree = Any
 
@@ -344,11 +345,11 @@ class AsyncCheckpointer:
     def save_async(self, step: int, shards: dict[tuple[int, int], PyTree],
                    *, meta: dict | None = None) -> float:
         """Returns seconds spent blocking (the device-to-host snapshot only)."""
-        t0 = time.perf_counter()
-        host = {key: _unflatten(tree, {k: _snapshot(v) for k, v in _flatten(tree).items()})
-                for key, tree in shards.items()}
-        self._q.put((step, host, meta))
-        return time.perf_counter() - t0
+        with tracing.span("checkpoint.snapshot", step=step) as sp:
+            host = {key: _unflatten(tree, {k: _snapshot(v) for k, v in _flatten(tree).items()})
+                    for key, tree in shards.items()}
+            self._q.put((step, host, meta))
+        return sp.seconds
 
     def wait(self):
         self._q.join()

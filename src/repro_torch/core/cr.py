@@ -17,10 +17,10 @@ ladder (``core.substitute.restore_member_state``) appends to its log.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
+from repro_torch import tracing
 from repro_torch.checkpoint import store
 from repro_torch.core.hierarchy import LegionTopology
 
@@ -79,9 +79,9 @@ class LegionCheckpointer:
             return 0.0
         if self.async_writer is not None and not sync:
             return self.async_writer.save_async(step, shards, meta=meta)
-        t0 = time.perf_counter()
-        store.save(self.directory, step, shards, meta=meta)
-        return time.perf_counter() - t0
+        with tracing.span("checkpoint.save", step=step) as sp:
+            store.save(self.directory, step, shards, meta=meta)
+        return sp.seconds
 
     def wait(self) -> None:
         if self.async_writer is not None:

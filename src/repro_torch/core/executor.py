@@ -26,12 +26,12 @@ so ``run_step`` is orchestration only:
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.batch import (
     BatchPlan,
     initial_assignment,
@@ -460,25 +460,25 @@ class VirtualCluster:
         self._step = step
         reports = []
         for p in ready:
-            t0 = time.perf_counter()
-            self.topo.expand(p.legion, p.spare)
-            self.detector.register(p.spare, self.clock.sim_seconds)
-            # peer-first ladder: the replica settled (or re-homed) during
-            # the warmup window, so the splice warm-starts in O(shard)
-            self._note_restored(
-                p.spare, restore_member_state(self, p.legion, p.failed).state)
-            self.plan = restore_rank(self.plan, p.spare, shards=p.shards)
-            k = len(self.topo.legion_of(p.spare).members)
-            steps = [RepairStep(op="substitute", comm=f"local_{p.legion}",
-                                participants=(p.spare,),
-                                cost_units=self.substitute.cost.splice_cost(k - 1))]
+            with tracing.span("repair.splice") as sp:
+                self.topo.expand(p.legion, p.spare)
+                self.detector.register(p.spare, self.clock.sim_seconds)
+                # peer-first ladder: the replica settled (or re-homed) during
+                # the warmup window, so the splice warm-starts in O(shard)
+                self._note_restored(
+                    p.spare, restore_member_state(self, p.legion, p.failed).state)
+                self.plan = restore_rank(self.plan, p.spare, shards=p.shards)
+                k = len(self.topo.legion_of(p.spare).members)
+                steps = [RepairStep(op="substitute", comm=f"local_{p.legion}",
+                                    participants=(p.spare,),
+                                    cost_units=self.substitute.cost.splice_cost(k - 1))]
             report = RepairReport(
                 trigger=(p.failed,),
                 hierarchical=self.topo.n_legions > 1,
                 master_failed=False,
                 steps=steps,
                 model_cost=sum(st.cost_units for st in steps),
-                wall_seconds=time.perf_counter() - t0,
+                wall_seconds=sp.seconds,
                 survivors=self.topo.size,
                 mode="substitute(nonblocking)",
                 substitutions=((p.failed, p.spare),),
@@ -579,11 +579,11 @@ class LegioExecutor:
             shards = cl.plan.shards_of(node)
             if not shards:
                 continue
-            t0 = time.perf_counter()
-            out = [self.work_fn(node, s, step) for s in shards]
-            results[node] = out[0] if len(out) == 1 else _sum_results(out)
+            with tracing.span("cluster.work", node=node, rows=len(shards)) as work:
+                out = [self.work_fn(node, s, step) for s in shards]
+                results[node] = out[0] if len(out) == 1 else _sum_results(out)
             computed_shards += len(shards)
-            cl.straggler.observe(node, time.perf_counter() - t0)
+            cl.straggler.observe(node, work.seconds)
         return results, computed_shards
 
     def _collective_phase(self, results: dict[int, Any]
@@ -625,9 +625,17 @@ class LegioExecutor:
     # -- one transparent step -----------------------------------------------------
 
     def run_step(self, step: int | None = None) -> StepReport:
-        cl = self.cluster
+        """One transparent step, the span ``cluster.step`` (with its
+        ``step``): the boundary, the work calls (``cluster.work``), the
+        step-final collective and its drains."""
         step = self.step_count if step is None else step
-        t_start = time.perf_counter()
+        with tracing.span("cluster.step", step=step) as sp:
+            rep = self._run_step(step)
+        rep.wall_seconds = sp.seconds
+        return rep
+
+    def _run_step(self, step: int) -> StepReport:
+        cl = self.cluster
         # 0. step boundary (Session.boundary): the provisioner delivers
         #    re-spawned spares (and reschedules shrunk slots), warmed-up
         #    substitutes rejoin, faults due this step land in the ground
@@ -670,7 +678,6 @@ class LegioExecutor:
             actions=tuple(actions),
             skipped_op=self._skip_op,
             sim_collective_seconds=sim_t,
-            wall_seconds=time.perf_counter() - t_start,
             # renormalize over the shards that actually contributed THIS step
             # (the post-repair plan may already show restored capacity a
             # just-spliced spare did not compute yet)

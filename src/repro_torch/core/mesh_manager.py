@@ -19,13 +19,13 @@ counterpart, the default process group's size (1 without one).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.dist.sharding import place, survivor_grid
 
 PyTree = Any
@@ -172,9 +172,9 @@ class CompileCache:
         if rec is not None:
             return rec.compiled, True
         compiled = torch.compile(fn)
-        t0 = time.perf_counter()
-        compiled(*args)
-        self.put(key, compiled, 0.0, time.perf_counter() - t0)
+        with tracing.span("compile", tag=tag) as sp:
+            compiled(*args)
+        self.put(key, compiled, 0.0, sp.seconds)
         return compiled, False
 
     def stats(self) -> dict:

@@ -27,8 +27,10 @@ step-boundary seam:
 
 Each drain emits one terminal :class:`RecoveryAction` per disjoint scope —
 the scopes partition the agreed verdict, so every failed node still appears
-in exactly one terminal action. Per-stage wall latencies are recorded on
-every action and in ``traces`` (benchmarks/repair_time.py reads the
+in exactly one terminal action. A drain is the span ``pipeline.drain`` with
+one child span a stage (``pipeline.detect`` ... ``pipeline.apply``,
+:mod:`repro_torch.tracing`); the stages' durations are recorded on every
+action and in ``traces`` (benchmarks/repair_time.py reads the
 breakdown, and :class:`~repro_torch.core.strategy.CostModelStrategy` fits its
 per-stage EWMA estimates from the same records — the pipeline is the
 adaptive scorer's only latency oracle).
@@ -52,9 +54,9 @@ Invariants (asserted by tests/test_pipeline.py and tests/test_serve.py):
 """
 from __future__ import annotations
 
-import time
 from typing import TYPE_CHECKING, Callable, Iterable
 
+from repro_torch import tracing
 from repro_torch.core.agreement import agree_fault
 from repro_torch.core.detector import notice_fault
 from repro_torch.core.types import (
@@ -239,34 +241,29 @@ class FaultPipeline:
         executor's root-failure policy hook (STOP raises there, before any
         repair mutates state; IGNORE flags the op skipped).
         """
-        srcs = frozenset(sources)
-        timings: dict[str, float] = {}
+        with tracing.span("pipeline.drain", step=step):
+            return self._drain(step, frozenset(sources), gate)
 
-        t0 = time.perf_counter()
-        events = self._detect(step, srcs)
-        timings["detect"] = time.perf_counter() - t0
+    def _drain(self, step: int, srcs: frozenset[FaultSource],
+               gate: Callable[[set[int]], None] | None) -> list[RecoveryAction]:
+        with tracing.span("pipeline.detect") as detect:
+            events = self._detect(step, srcs)
         if not events:
             return []
-
-        t0 = time.perf_counter()
-        observations, suspicion_only = self._notice(events)
-        timings["notice"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        verdict = self._agree(observations, suspicion_only)
-        timings["agree"] = time.perf_counter() - t0
+        with tracing.span("pipeline.notice") as notice:
+            observations, suspicion_only = self._notice(events)
+        with tracing.span("pipeline.agree") as agree:
+            verdict = self._agree(observations, suspicion_only)
         if not verdict:
             return []
         if gate is not None:
             gate(verdict)
-
-        t0 = time.perf_counter()
-        strategy_name, straggle, scopes = self._plan(verdict, events)
-        timings["plan"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        repaired = self._apply(verdict, straggle, scopes)
-        timings["apply"] = time.perf_counter() - t0
+        with tracing.span("pipeline.plan") as plan:
+            strategy_name, straggle, scopes = self._plan(verdict, events)
+        with tracing.span("pipeline.apply") as apply:
+            repaired = self._apply(verdict, straggle, scopes)
+        stage_seconds = {s.name[len("pipeline."):]: s.seconds
+                         for s in (detect, notice, agree, plan, apply)}
 
         sources = tuple(sorted({e.source for e in events},
                                key=lambda s: s.value))
@@ -279,7 +276,7 @@ class FaultPipeline:
                 sources=sources,
                 report=report,
                 terminal=True,
-                stage_seconds=dict(timings),
+                stage_seconds=dict(stage_seconds),
                 scope=scope,
                 # the repair's charge went to a background window instead
                 # of the clock — still open when the action is emitted
@@ -290,7 +287,7 @@ class FaultPipeline:
         self.actions.extend(actions)
         self.traces.append(PipelineTrace(
             step=step, n_events=len(events),
-            verdict=tuple(sorted(verdict)), stage_seconds=dict(timings)))
+            verdict=tuple(sorted(verdict)), stage_seconds=dict(stage_seconds)))
         for action in actions:
             for listener in self._listeners:
                 listener(action)

@@ -29,9 +29,9 @@ simulated seconds) and the measured wall-clock of our repair path.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
+from repro_torch import tracing
 from repro_torch.core.hierarchy import LegionTopology
 from repro_torch.core.policy import LegioPolicy
 from repro_torch.core.types import RepairReport, RepairStep
@@ -205,22 +205,21 @@ class ShrinkEngine:
 
     def repair(self, topo: LegionTopology, failed: set[int]) -> RepairReport:
         """Plan + mutate the topology. Returns the report (plan, costs, wall)."""
-        t0 = time.perf_counter()
-        steps = self.plan(topo, failed)
-        master_failed = master_failed_in(topo, failed, steps)
-        hierarchical = topo.n_legions > 1
-        for node in sorted(failed):
-            if node in topo.home and any(node in lg.members for lg in topo.legions):
-                topo.remove(node)
-        topo.compact()
-        wall = time.perf_counter() - t0
+        with tracing.span("repair.shrink") as sp:
+            steps = self.plan(topo, failed)
+            master_failed = master_failed_in(topo, failed, steps)
+            hierarchical = topo.n_legions > 1
+            for node in sorted(failed):
+                if node in topo.home and any(node in lg.members for lg in topo.legions):
+                    topo.remove(node)
+            topo.compact()
         return RepairReport(
             trigger=tuple(sorted(failed)),
             hierarchical=hierarchical,
             master_failed=master_failed,
             steps=steps,
             model_cost=sum(st.cost_units for st in steps),
-            wall_seconds=wall,
+            wall_seconds=sp.seconds,
             survivors=topo.size,
         )
 

@@ -36,10 +36,10 @@ Bouteiller & Bosilca's implicit-actions argument at step granularity.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any
 
+from repro_torch import tracing
 from repro_torch.core.hierarchy import LegionTopology
 from repro_torch.core.policy import LegioPolicy
 from repro_torch.core.shrink import (
@@ -288,31 +288,29 @@ class SubstituteEngine:
         degrading."""
         if strict is None:
             strict = self.policy.recovery_mode == "substitute"
-        t0 = time.perf_counter()
-        present = [n for n in sorted(failed)
-                   if n in topo.home and n in topo.nodes]
-        pool.require(len(present), strict)
-        substitutions: dict[int, int] = {}
-        for node in present:
-            spare = pool.take()
-            if spare is None:
-                break
-            substitutions[node] = spare
+        with tracing.span("repair.substitute") as sp:
+            present = [n for n in sorted(failed)
+                       if n in topo.home and n in topo.nodes]
+            pool.require(len(present), strict)
+            substitutions: dict[int, int] = {}
+            for node in present:
+                spare = pool.take()
+                if spare is None:
+                    break
+                substitutions[node] = spare
 
-        steps = self.plan(topo, failed, substitutions)
-        master_failed = master_failed_in(topo, set(present), steps)
-        hierarchical = topo.n_legions > 1
+            steps = self.plan(topo, failed, substitutions)
+            master_failed = master_failed_in(topo, set(present), steps)
+            hierarchical = topo.n_legions > 1
 
-        unfilled = []
-        for node in present:
-            if node in substitutions:
-                topo.substitute(node, substitutions[node])
-            else:
-                topo.remove(node)
-                unfilled.append(node)
-        topo.compact()
-
-        wall = time.perf_counter() - t0
+            unfilled = []
+            for node in present:
+                if node in substitutions:
+                    topo.substitute(node, substitutions[node])
+                else:
+                    topo.remove(node)
+                    unfilled.append(node)
+            topo.compact()
         mode = ("substitute" if not unfilled else "substitute_then_shrink")
         return RepairReport(
             trigger=tuple(sorted(failed)),
@@ -320,7 +318,7 @@ class SubstituteEngine:
             master_failed=master_failed,
             steps=steps,
             model_cost=sum(st.cost_units for st in steps),
-            wall_seconds=wall,
+            wall_seconds=sp.seconds,
             survivors=topo.size,
             mode=mode,
             substitutions=tuple(sorted(substitutions.items())),

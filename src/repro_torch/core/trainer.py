@@ -73,7 +73,6 @@ frees its tensors at once, without waiting for the cycle collector.
 from __future__ import annotations
 
 import math
-import time
 import weakref
 from dataclasses import dataclass, field
 from typing import Any
@@ -82,6 +81,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.cr import LegionCheckpointer
 from repro_torch.core.executor import VirtualCluster
@@ -127,7 +127,6 @@ class TrainerReport:
     grad_scale: float
     repair: RepairReport | None = None
     recompiled: bool = False
-    step_seconds: float = 0.0
     metrics: dict = field(default_factory=dict)
 
 
@@ -260,7 +259,9 @@ class ResilientTrainer:
         # mean-over-present-shards is already the renormalised estimator:
         # grad_scale stays 1.0 for DROP (the mean's denominator shrank with
         # the batch); it differs from 1 only for weighted schemes
-        return self._batch_of(step, shards), 1.0
+        with tracing.span("train.batch"):
+            batch = self._batch_of(step, shards)
+        return batch, 1.0
 
     def _rank_shards(self) -> list[int]:
         """The shards of the live nodes this rank owns, sorted."""
@@ -271,8 +272,15 @@ class ResilientTrainer:
     # -- one resilient step -----------------------------------------------------------
 
     def run_step(self) -> TrainerReport:
+        """One step, the span ``train.step`` (with its ``step``): the
+        boundary and its repair (``pipeline.drain``), the batch
+        (``train.batch``), forward, backward and optimizer, and the step's
+        first wait for the card (``train.sync``, reading the loss)."""
+        with tracing.span("train.step", step=self.step):
+            return self._run_step()
+
+    def _run_step(self) -> TrainerReport:
         cl = self.cluster
-        t0 = time.perf_counter()
         step = self.step
 
         # step boundary through the facade: re-spawned spares and warmed-up
@@ -296,7 +304,8 @@ class ResilientTrainer:
             self.params, self.opt, metrics = self.train_step(
                 self.params, self.opt, batch, grad_scale)
 
-        loss = float(metrics["loss"])
+        with tracing.span("train.sync"):
+            loss = float(metrics["loss"])
         if not math.isfinite(loss):
             raise FloatingPointError(f"non-finite loss at step {step}: {loss}")
 
@@ -317,7 +326,6 @@ class ResilientTrainer:
             grad_scale=grad_scale,
             repair=repair,
             recompiled=recompiled,
-            step_seconds=time.perf_counter() - t0,
             metrics={k: float(v) for k, v in metrics.items() if v.dim() == 0},
         )
         self.history.append(report)
@@ -350,7 +358,8 @@ class ResilientTrainer:
             span = self._routing_span(shards, group)
             if shards or span is not None:
                 # a member with no shard runs a stand-in one under the span
-                batch = self._batch_of(step, shards or [0])
+                with tracing.span("train.batch"):
+                    batch = self._batch_of(step, shards or [0])
                 for p in leaves:
                     p.requires_grad_(True)
                 try:

@@ -64,7 +64,6 @@ plane it returns ``None``: every node's state lives on the one device.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -72,6 +71,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import (
     leaf_spec,
@@ -299,33 +299,33 @@ class TorchDataPlane:
         A collective of the world group: every rank calls it, one that holds
         no surviving node too. The trainer's params, mu and nu come back
         placed, and its next step reads them where they are (see
-        ``core.trainer``). The wall time covers the mesh, the placement and
-        a device sync; every rank reports the slowest rank's, so every
-        rank's clock takes the same charge."""
+        ``core.trainer``). The wall time, the span ``pipeline.reshard``,
+        covers the mesh, the placement and a device sync; every rank reports
+        the slowest rank's, so every rank's clock takes the same charge."""
         if self.world == 1 or not self.registered:
             return None
-        t0 = time.perf_counter()
-        mesh = self.mesh_for(view)
-        leaves = moved = 0
+        with tracing.span("pipeline.reshard") as reshard:
+            mesh = self.mesh_for(view)
+            leaves = moved = 0
 
-        def place_leaf(path, leaf):
-            nonlocal leaves, moved
-            if not isinstance(leaf, torch.Tensor):
-                return leaf
-            leaves += 1
-            moved += leaf.numel() * leaf.element_size()
-            return place(leaf, mesh, leaf_spec(path, tuple(leaf.shape), mesh))
+            def place_leaf(path, leaf):
+                nonlocal leaves, moved
+                if not isinstance(leaf, torch.Tensor):
+                    return leaf
+                leaves += 1
+                moved += leaf.numel() * leaf.element_size()
+                return place(leaf, mesh, leaf_spec(path, tuple(leaf.shape), mesh))
 
-        for getter, setter in self.registered.values():
-            tree = getter()
-            if tree is None:
-                continue
-            placed_tree = tree_map_with_path(place_leaf, tree)
-            if setter is not None:
-                setter(placed_tree)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = torch.tensor([time.perf_counter() - t0], dtype=torch.float64, device=self.device)
+            for getter, setter in self.registered.values():
+                tree = getter()
+                if tree is None:
+                    continue
+                placed_tree = tree_map_with_path(place_leaf, tree)
+                if setter is not None:
+                    setter(placed_tree)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        wall = torch.tensor([reshard.seconds], dtype=torch.float64, device=self.device)
         dist.all_reduce(wall, op=dist.ReduceOp.MAX)
         return ReshardReport(leaves=leaves, n_devices=mesh.size(), moved_bytes=moved,
                              wall_seconds=float(wall.item()), mesh_shape=tuple(mesh.shape))

@@ -43,12 +43,12 @@ import json
 import logging
 import math
 import sys
-import time
 import traceback
 from pathlib import Path
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import SHAPES, ShapeSpec, TrainConfig, shape_applicable
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_shape
 from repro_torch.dist.compat import use_mesh
@@ -144,20 +144,20 @@ def dryrun_step(cfg, shape: ShapeSpec, mesh, *, device: str = "meta",
     specs = input_specs(cfg, shape)
     in_sh, _ = cell_shardings(cfg, shape, mesh, specs)
     fn = step_fn_for(cfg, shape, tc or TrainConfig())
-    t0 = time.perf_counter()
-    args = place_inputs(specs, in_sh, device)
-    arg_bytes = argument_bytes(args)
-    tracker = _device_tracker()
-    tracker.track_external(*_local_tensors(args))
-    cost_mode = hlo_stats.CostMode(attribute=attribute)
-    with use_mesh(mesh), implicit_replication(), tracker, cost_mode:
-        out = fn(**args)
+    with tracing.span("dryrun.cell") as sp:
+        args = place_inputs(specs, in_sh, device)
+        arg_bytes = argument_bytes(args)
+        tracker = _device_tracker()
+        tracker.track_external(*_local_tensors(args))
+        cost_mode = hlo_stats.CostMode(attribute=attribute)
+        with use_mesh(mesh), implicit_replication(), tracker, cost_mode:
+            out = fn(**args)
     peak = sum(snap.get("Total", 0)
                for snap in tracker.get_tracker_snapshot("peak").values())
     out_bytes = argument_bytes(out)
     return {"argument_bytes": arg_bytes, "spec_bytes": spec_bytes(specs, in_sh),
             "output_bytes": out_bytes, "peak_bytes": peak, "cost": cost_mode.cost,
-            "cost_mode": cost_mode, "run_s": time.perf_counter() - t0}
+            "cost_mode": cost_mode, "run_s": sp.seconds}
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,

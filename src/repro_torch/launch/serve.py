@@ -30,11 +30,11 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import FaultInjector, LegioPolicy
@@ -56,9 +56,12 @@ def greedy_generate(cfg: ModelConfig, params, tokens: torch.Tensor,
     logits, cache = api.prefill(cfg, params, tokens, tokens.shape[1] + decode_tokens)
     tok = logits[:, -1, :].argmax(dim=-1)[:, None]
     out = []
-    for _ in range(decode_tokens):
+    for index in range(decode_tokens):
         out.append(tok)
-        logits, cache = api.decode_step(cfg, params, cache, tok)
+        # the host's time to issue one step (the card runs behind it; step 0
+        # also waits for launch-queue room behind the prefill)
+        with tracing.span("serve.decode", index=index):
+            logits, cache = api.decode_step(cfg, params, cache, tok)
         tok = logits[:, -1, :].argmax(dim=-1)[:, None]
     return torch.cat(out, dim=1)
 
@@ -121,13 +124,15 @@ class ResilientServer:
         """Prefill + greedy-decode a batch of requests; returns token matrix."""
         tokens = self.prompts(request_ids)
         out = greedy_generate(self.cfg, self.params, tokens, self.decode_tokens)
-        return out.cpu().numpy()
+        # the batch's wait for the card: its tokens come to the host
+        with tracing.span("serve.sync"):
+            return out.cpu().numpy()
 
     def run(self, n_requests: int) -> dict:
         self.engine.submit(n_requests)
-        t0 = time.perf_counter()
-        rep = self.engine.serve()
-        wall = time.perf_counter() - t0
+        with tracing.span("serve.run") as run:
+            rep = self.engine.serve()
+        wall = run.seconds
         m = rep.metrics_summary
         return {
             "completed": rep.completed,

@@ -23,6 +23,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import gather_fsdp, shard_activations, take_rows
 from repro_torch.models import ssd as ssd_mod
@@ -77,7 +78,8 @@ def _logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
 
 def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor):
     lp = gather_fsdp(lp, cfg.act_shard)
-    out, cache = ssd_mod.mamba_block(cfg, lp["ssm"], rms_norm(x, lp["norm"], cfg.norm_eps))
+    with tracing.region("model.ssd"):
+        out, cache = ssd_mod.mamba_block(cfg, lp["ssm"], rms_norm(x, lp["norm"], cfg.norm_eps))
     return shard_activations(x + out, cfg.act_shard), cache
 
 
@@ -106,10 +108,11 @@ def train_loss(cfg: ModelConfig, params: Params,
                batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
     """batch: tokens (B,S), labels (B,S). Returns (scalar loss, metrics)."""
     hidden, _ = forward_hidden(cfg, params, batch["tokens"])
-    loss, metrics = cross_entropy_chunked(
-        hidden, params["embed"], batch["labels"], chunk=cfg.xent_chunk,
-        z_loss_weight=cfg.z_loss_weight,
-    )
+    with tracing.region("model.loss"):
+        loss, metrics = cross_entropy_chunked(
+            hidden, params["embed"], batch["labels"], chunk=cfg.xent_chunk,
+            z_loss_weight=cfg.z_loss_weight,
+        )
     metrics["loss"] = loss
     return loss, metrics
 
@@ -136,10 +139,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     x = _embed(cfg, params, tokens)
     for i, lp in enumerate(layer_params(params["layers"])):
         h = rms_norm(x, lp["norm"], cfg.norm_eps)
-        out, new = ssd_mod.mamba_decode_step(
-            cfg, lp["ssm"], h, ssd_mod.SSMCache(conv=cache["conv"][i], state=cache["state"][i]))
-        cache["conv"][i].copy_(new.conv)
-        cache["state"][i].copy_(new.state)
+        with tracing.region("model.ssd"):
+            out, new = ssd_mod.mamba_decode_step(
+                cfg, lp["ssm"], h,
+                ssd_mod.SSMCache(conv=cache["conv"][i], state=cache["state"][i]))
+            cache["conv"][i].copy_(new.conv)
+            cache["state"][i].copy_(new.state)
         x = x + out
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x), {**cache, "pos": cache["pos"] + 1}

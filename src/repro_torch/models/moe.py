@@ -64,6 +64,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import shard_activations, shard_heads, unsplit
 from repro_torch.models.common import activation_fn, dense_init
@@ -182,18 +183,21 @@ def _dispatch_combine(cfg: ModelConfig, p: dict, x: torch.Tensor, route: tuple,
     expert_idx, slot, keep, gates = route
     D, C = x.shape[-1], capacity
     sink = cfg.n_experts * C                       # the per-group sink row
-    # rows of the (m * (E*C + 1), D) buffer, group by group
-    rows = (torch.where(keep, expert_idx * C + slot, sink)
-            + (group * (sink + 1))[..., None]).reshape(-1)
-    src = x[..., None, :].expand(*keep.shape, D).reshape(-1, D)
-    xe = (x if buffer_of is None else buffer_of).new_zeros((m * (sink + 1), D))
-    xe = xe.index_copy(0, rows, src)
-    xe = xe.reshape(m, sink + 1, D)[:, :sink].reshape(m, cfg.n_experts, C, D)
-    ye = _expert_ffn(cfg, p, shard_activations(xe, cfg.act_shard))
-    ye_flat = torch.cat([ye.reshape(m, sink, D), ye.new_zeros((m, 1, D))], dim=1)
-    y_tk = ye_flat.reshape(m * (sink + 1), D)[rows].reshape(*keep.shape, D)
-    w = (gates * keep.to(gates.dtype)).to(x.dtype)
-    return torch.einsum("...k,...kd->...d", w, y_tk)
+    with tracing.region("model.moe.dispatch"):
+        # rows of the (m * (E*C + 1), D) buffer, group by group
+        rows = (torch.where(keep, expert_idx * C + slot, sink)
+                + (group * (sink + 1))[..., None]).reshape(-1)
+        src = x[..., None, :].expand(*keep.shape, D).reshape(-1, D)
+        xe = (x if buffer_of is None else buffer_of).new_zeros((m * (sink + 1), D))
+        xe = xe.index_copy(0, rows, src)
+        xe = xe.reshape(m, sink + 1, D)[:, :sink].reshape(m, cfg.n_experts, C, D)
+    with tracing.region("model.moe.experts"):
+        ye = _expert_ffn(cfg, p, shard_activations(xe, cfg.act_shard))
+    with tracing.region("model.moe.combine"):
+        ye_flat = torch.cat([ye.reshape(m, sink, D), ye.new_zeros((m, 1, D))], dim=1)
+        y_tk = ye_flat.reshape(m * (sink + 1), D)[rows].reshape(*keep.shape, D)
+        w = (gates * keep.to(gates.dtype)).to(x.dtype)
+        return torch.einsum("...k,...kd->...d", w, y_tk)
 
 
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, MoEMetrics]:
@@ -210,14 +214,15 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
     xg = shard_activations(x.reshape(n, g, D), cfg.act_shard)
     C = _capacity(cfg, g)
 
-    # (n*g, D) @ (D, E): a product with no batch dims, as the reference's einsum
-    logits = (x.float() @ p["router"].float()).reshape(n, g, E)
-    # at decode one group's tokens may span the devices of more than one
-    # mesh dim: route the group whole there (its logits are a few KB); where
-    # each device holds whole groups, as in training and prefill, these are
-    # the logits themselves
-    logits = unsplit(logits, 1)
-    *route, aux, z, dropped = _route_group(cfg, logits, C)
+    with tracing.region("model.moe.route"):
+        # (n*g, D) @ (D, E): a product with no batch dims, as the reference's einsum
+        logits = (x.float() @ p["router"].float()).reshape(n, g, E)
+        # at decode one group's tokens may span the devices of more than one
+        # mesh dim: route the group whole there (its logits are a few KB); where
+        # each device holds whole groups, as in training and prefill, these are
+        # the logits themselves
+        logits = unsplit(logits, 1)
+        *route, aux, z, dropped = _route_group(cfg, logits, C)
     y = _dispatch_combine(cfg, p, xg, route, C, torch.arange(n, device=x.device)[:, None], n,
                           buffer_of=x)
     return y.reshape(n * g, D)[:T], MoEMetrics(aux.mean(), z.mean(), dropped.mean())
@@ -233,18 +238,19 @@ def _moe_ffn_spanned(cfg: ModelConfig, p: dict, x: torch.Tensor,
     n = (span.tokens + g - 1) // g
     C = _capacity(cfg, g)
 
-    logits = x.float() @ p["router"].float()                      # (T_local, E)
-    if span.rows is None:      # a stand-in: writes no row, keeps no choice
-        at = torch.zeros(n_local, dtype=torch.int64, device=x.device)
-        written, logits = at[:0], logits[:0]
-    else:
-        at = written = span.rows
-    whole = logits.new_zeros((n * g, E)).index_copy(0, written, logits)
-    whole = _SumOverGroup.apply(whole, span.group).reshape(n, g, E)
-    *route, aux, z, dropped = _route_group(cfg, whole, C)
-    expert_idx, slot, keep, gates = (t.reshape(n * g, k)[at] for t in route)
-    if span.rows is None:
-        keep = torch.zeros_like(keep)
+    with tracing.region("model.moe.route"):
+        logits = x.float() @ p["router"].float()                      # (T_local, E)
+        if span.rows is None:      # a stand-in: writes no row, keeps no choice
+            at = torch.zeros(n_local, dtype=torch.int64, device=x.device)
+            written, logits = at[:0], logits[:0]
+        else:
+            at = written = span.rows
+        whole = logits.new_zeros((n * g, E)).index_copy(0, written, logits)
+        whole = _SumOverGroup.apply(whole, span.group).reshape(n, g, E)
+        *route, aux, z, dropped = _route_group(cfg, whole, C)
+        expert_idx, slot, keep, gates = (t.reshape(n * g, k)[at] for t in route)
+        if span.rows is None:
+            keep = torch.zeros_like(keep)
     # the expert buffer holds the groups this rank's tokens lie in, in order
     used, group_of = torch.unique(at // g, return_inverse=True)
     y = _dispatch_combine(cfg, p, x, (expert_idx, slot, keep, gates), C, group_of,

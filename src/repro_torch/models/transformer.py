@@ -52,6 +52,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (
     gather_fsdp,
@@ -171,13 +172,14 @@ def unembed_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
 def _attn_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                  positions: torch.Tensor, window: int | None = None):
     """Returns (attn_out (B,S,D), k (B,S,K,hd), v (B,S,K,hd))."""
-    q = split_last(h @ lp["wq"], cfg.n_heads, cfg.head_dim)
-    k = split_last(h @ lp["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = split_last(h @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, cfg, causal=True, window=window)
-    return merge_last(o) @ lp["wo"], k, v
+    with tracing.region("model.attention"):
+        q = split_last(h @ lp["wq"], cfg.n_heads, cfg.head_dim)
+        k = split_last(h @ lp["wk"], cfg.n_kv_heads, cfg.head_dim)
+        v = split_last(h @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        o = attention(q, k, v, cfg, causal=True, window=window)
+        return merge_last(o) @ lp["wo"], k, v
 
 
 def _mlp_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
@@ -207,7 +209,8 @@ def _ffn(cfg: ModelConfig, lp: Params, h2: torch.Tensor):
     """The MLP or, for MoE, the expert layer. Returns (y, aux (3,) fp32:
     load-balance loss, router z-loss, dropped fraction; zeros for an MLP)."""
     if not cfg.is_moe:
-        return _mlp_branch(cfg, lp["mlp"], h2), torch.zeros(3, device=h2.device)
+        with tracing.region("model.mlp"):
+            return _mlp_branch(cfg, lp["mlp"], h2), torch.zeros(3, device=h2.device)
     B, S, D = h2.shape
     y, m = moe_mod.moe_ffn(cfg, lp["moe"], h2.reshape(B * S, D))
     return y.reshape(B, S, D), torch.stack(list(m))
@@ -223,7 +226,8 @@ def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.T
     attn_out, k, v = _attn_branch(cfg, lp["attn"], h, positions, window=window)
     ssm_cache = None
     if hybrid:
-        ssm_out, ssm_cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
+        with tracing.region("model.ssd"):
+            ssm_out, ssm_cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
@@ -313,11 +317,12 @@ def train_loss(cfg: ModelConfig, params: Params,
     """batch: tokens (B,S) or embeds (B,S,D), labels (B,S). Returns (scalar loss, metrics)."""
     hidden, aux, _ = forward_hidden(cfg, params, batch.get("tokens"),
                                     embeds=batch.get("embeds"))
-    loss, metrics = cross_entropy_chunked(
-        hidden, unembed_matrix(cfg, params), batch["labels"],
-        chunk=cfg.xent_chunk, z_loss_weight=cfg.z_loss_weight,
-        logits_softcap=cfg.logits_softcap,
-    )
+    with tracing.region("model.loss"):
+        loss, metrics = cross_entropy_chunked(
+            hidden, unembed_matrix(cfg, params), batch["labels"],
+            chunk=cfg.xent_chunk, z_loss_weight=cfg.z_loss_weight,
+            logits_softcap=cfg.logits_softcap,
+        )
     if cfg.is_moe:
         loss = loss + cfg.moe_aux_loss_weight * aux["moe_aux"] \
                     + cfg.router_z_loss_weight * aux["router_z"]
@@ -398,23 +403,25 @@ def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, lcache: dict,
     k_cache, v_cache = lcache["k"], lcache["v"]
     C = k_cache.shape[1]
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = split_last(h @ lp["attn"]["wq"], cfg.n_heads, cfg.head_dim)
-    k = split_last(h @ lp["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = split_last(h @ lp["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
-    pos_b = torch.full((B, 1), pos, device=x.device)
-    q = apply_rope(q, pos_b, cfg.rope_theta)
-    k = apply_rope(k, pos_b, cfg.rope_theta)
-    slot = pos % C
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
-    o = decode_attention(q, k_cache, v_cache, valid,
-                         logit_softcap=cfg.attn_logit_softcap, head_shard=cfg.act_shard)
-    attn_out = merge_last(o) @ lp["attn"]["wo"]
+    with tracing.region("model.attention"):
+        q = split_last(h @ lp["attn"]["wq"], cfg.n_heads, cfg.head_dim)
+        k = split_last(h @ lp["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
+        v = split_last(h @ lp["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
+        pos_b = torch.full((B, 1), pos, device=x.device)
+        q = apply_rope(q, pos_b, cfg.rope_theta)
+        k = apply_rope(k, pos_b, cfg.rope_theta)
+        slot = pos % C
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+        o = decode_attention(q, k_cache, v_cache, valid,
+                             logit_softcap=cfg.attn_logit_softcap, head_shard=cfg.act_shard)
+        attn_out = merge_last(o) @ lp["attn"]["wo"]
     if cfg.family == "hybrid":
-        ssm_in = ssd_mod.SSMCache(conv=lcache["conv"], state=lcache["state"])
-        ssm_out, ssm_new = ssd_mod.mamba_decode_step(cfg, lp["ssm"], h, ssm_in)
-        lcache["conv"].copy_(ssm_new.conv)
-        lcache["state"].copy_(ssm_new.state)
+        with tracing.region("model.ssd"):
+            ssm_in = ssd_mod.SSMCache(conv=lcache["conv"], state=lcache["state"])
+            ssm_out, ssm_new = ssd_mod.mamba_decode_step(cfg, lp["ssm"], h, ssm_in)
+            lcache["conv"].copy_(ssm_new.conv)
+            lcache["state"].copy_(ssm_new.state)
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out

@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import TrainConfig
 
 PyTree = Any
@@ -87,11 +88,12 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.T
 
 def clip_by_global_norm_(grads: PyTree, max_norm: float) -> torch.Tensor:
     """``clip_by_global_norm`` written into ``grads`` leaf by leaf; returns the norm."""
-    norm = global_norm(grads)
-    scale = _clip_scale(norm, max_norm)
-    with torch.no_grad():
-        for g in tree_leaves(grads):
-            g.copy_((g.float() * scale).to(g.dtype))
+    with tracing.region("optim.clip"):
+        norm = global_norm(grads)
+        scale = _clip_scale(norm, max_norm)
+        with torch.no_grad():
+            for g in tree_leaves(grads):
+                g.copy_((g.float() * scale).to(g.dtype))
     return norm
 
 
@@ -155,10 +157,11 @@ def adamw_update_(grads: PyTree, state: OptState, params: PyTree, tc: TrainConfi
     moments and parameter are overwritten before the next leaf is touched.
     Returns the state with the advanced step (its moments are the same
     tensors, now updated)."""
-    step = state.step + 1
-    bc1, bc2 = _bias_corrections(step, tc)
-    with torch.no_grad():
-        def leaf(g, m, v, p):
-            p.add_(_leaf_update(g, m, v, p, tc, lr, bc1, bc2))
-        tree_map(leaf, grads, state.mu, state.nu, params)
+    with tracing.region("optim.adamw"):
+        step = state.step + 1
+        bc1, bc2 = _bias_corrections(step, tc)
+        with torch.no_grad():
+            def leaf(g, m, v, p):
+                p.add_(_leaf_update(g, m, v, p, tc, lr, bc1, bc2))
+            tree_map(leaf, grads, state.mu, state.nu, params)
     return OptState(step=step, mu=state.mu, nu=state.nu)

@@ -61,10 +61,10 @@ Invariants (asserted by tests/test_serve.py and the chaos harness):
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from repro_torch import tracing
 from repro_torch.core.executor import VirtualCluster
 from repro_torch.core.types import FaultSource, RecoveryAction
 from repro_torch.mpi import Session
@@ -127,7 +127,7 @@ class RoundReport:
     backlog: int = 0
     inflight: int = 0
     sim_seconds: float = 0.0                 # deterministic round duration
-    wall_seconds: float = 0.0                # perf_counter, humans only
+    wall_seconds: float = 0.0                # the ``serve.round`` span's
 
 
 @dataclass
@@ -346,9 +346,19 @@ class ServeEngine:
     # -- one serving tick ----------------------------------------------------
 
     def run_round(self, step: int | None = None) -> RoundReport:
-        cl = self.cluster
+        """One serving tick, the span ``serve.round`` (with its ``step``):
+        deliver, admit, inject, the work calls (``serve.work``), the
+        gather and its drain (``pipeline.drain``); the round's wall time is
+        the span's."""
         step = self.round_count if step is None else step
-        t_start = time.perf_counter()
+        with tracing.span("serve.round", step=step) as rnd:
+            rep = self._round(step)
+        rep.wall_seconds = rnd.seconds
+        self.metrics.record_round(step, rep.sim_seconds, rnd.seconds)
+        return rep
+
+    def _round(self, step: int) -> RoundReport:
+        cl = self.cluster
         sim_start = cl.clock.sim_seconds
 
         # 1. boundary: elastic refills + warmed-up substitutes rejoin
@@ -391,9 +401,6 @@ class ServeEngine:
                 self._redeliver(req, stranded_view, migrate=True)
 
         self.round_count = step + 1
-        sim_elapsed = cl.clock.sim_seconds - sim_start
-        wall = time.perf_counter() - t_start
-        self.metrics.record_round(step, sim_elapsed, wall)
         return RoundReport(
             step=step,
             dispatched=dispatched_sizes,
@@ -404,8 +411,7 @@ class ServeEngine:
             expanded=boundary.expanded,
             backlog=self.router.backlog,
             inflight=sum(len(b) for b in self._inflight.values()),
-            sim_seconds=sim_elapsed,
-            wall_seconds=wall,
+            sim_seconds=cl.clock.sim_seconds - sim_start,
         )
 
     # -- phases --------------------------------------------------------------
@@ -476,10 +482,10 @@ class ServeEngine:
         its progress reset (the result never materialized), never records
         a completion the client didn't get."""
         cl = self.cluster
-        t0 = time.perf_counter()
-        results = self.work_fn(node, ready, step)
+        with tracing.span("serve.work", node=node, rows=len(ready)) as work:
+            results = self.work_fn(node, ready, step)
         if self.observe_stragglers:
-            cl.straggler.observe(node, time.perf_counter() - t0)
+            cl.straggler.observe(node, work.seconds)
         dropped_view = None
         for req in ready:
             if req.rid in results:

@@ -6,8 +6,8 @@ and in *simulated-clock seconds* (``arrival_sim`` → ``complete_sim``, the
 cluster's deterministic clock). The sim-seconds numbers are what the
 load-curve benchmark asserts on — they are byte-identical across runs
 given a seeded campaign, per the repo's structural-benchmark convention —
-while wall time (``time.perf_counter``) is kept alongside per round for
-human inspection only, never for pass/fail.
+while wall time (the round's ``serve.round`` span, :mod:`repro_torch.tracing`)
+is kept alongside per round for human inspection only, never for pass/fail.
 
 The continuous-batching engine also feeds:
 
