@@ -93,11 +93,21 @@ never JAX or the JAX package, and runs, in order:
      ``sim_seconds``), and with 1-element payloads (the host's share);
   8. the resilient trainer, the trainer's main path (the earlier phases'
      tensors freed first):
+     - the loss's logit GEMMs at one chunk of mixtral-train (6 x 512 rows,
+       d 6144, vocab 32768, bf16 from a seed): the tensor-core path
+       (``_LogitsF32``: bf16 operands, fp32 sums, the fp32 logit gradient
+       as two bf16 terms) against the fp32 upcast on the same tensors
+       (logits within 1e-4 of the largest, lse, NLL sum and loss within
+       1e-5; fp32 dH and dW within 1e-4, which the gradient rounded once
+       to bf16 must miss, and the split alone within 1e-5; bf16 gradients
+       through the loss within 2**-8), its counters, and the CUDA-event ms
+       of a chunk's forward and backward both ways;
      - llama3.2-3b cut to 2 layers at full width, weights drawn on the CPU:
        ``train_loss`` and its gradients on the card against the CPU in
        fp32 with TF32 off (loss within 1e-4, each gradient leaf within
        1e-3 in norm), then bf16 against fp32 on the card (loss within 2e-2
-       relative, global gradient norm within 5%);
+       relative, global gradient norm within 5%; the bf16 loss goes through
+       ``_LogitsF32``);
      - ``make_batch(0, 0, 0, 1 x 1024, vocab 128256)``'s tokens against
        the SHA-256 that tests/test_torch_data.py pins from jax;
      - full-width llama3.2-3b through ``ResilientTrainer`` on 8 nodes in
@@ -1625,20 +1635,154 @@ def train_checks(torch, api, cfg, dev) -> dict:
         raise AssertionError("train_loss or its gradients differ between the card and the CPU")
     del cpu_grads
 
+    from repro_torch.models import common
+
     bf = cut.replace(dtype="bfloat16", param_dtype="bfloat16")
+    backwards = common._LogitsF32.backwards
     loss16, grads16 = loss_and_grads(torch, api, bf, tree_map(lambda t: t.bfloat16(), on_card),
                                      card_batch)
+    backwards = common._LogitsF32.backwards - backwards
     gn32, gn16 = global_norm_of(torch, grads32), global_norm_of(torch, grads16)
     dloss = abs(loss16.item() - loss32.item())
     ok = dloss <= BF16_LOSS_RTOL * abs(loss32.item()) and abs(gn16 - gn32) <= BF16_GNORM_RTOL * gn32
     print(f"[8] bf16 vs fp32 on the card: loss {loss16.item():.6f} vs {loss32.item():.6f} "
           f"(|d| {dloss:.3e}, limit {BF16_LOSS_RTOL:g} x |loss|); global grad norm "
           f"{gn16:.6f} vs {gn32:.6f} (rel {abs(gn16 - gn32) / gn32:.3e}, limit "
-          f"{BF16_GNORM_RTOL:g}) {'ok' if ok else 'FAIL'}")
+          f"{BF16_GNORM_RTOL:g}); the bf16 loss's logits through _LogitsF32: {backwards} "
+          f"backwards {'ok' if ok and backwards else 'FAIL'}")
     if not ok:
         raise AssertionError("the bf16 training loss or gradient norm is off the fp32 one")
+    if not backwards:
+        raise AssertionError("the bf16 loss on the card did not take the tensor-core logits")
     return dict(loss_rel=loss_rel, grad_rel=grad_rel, bf16_dloss=dloss,
                 bf16_gnorm_rel=abs(gn16 - gn32) / gn32)
+
+
+# phase 8.0: one chunk of mixtral-train's loss (6 shards x 512 of a 2048
+# chunk-4 sequence, d 6144, vocab 32768), bf16 drawn from a seed
+LOGIT_B, LOGIT_C, LOGIT_D, LOGIT_V = 6, 512, 6144, 32768
+# Against the SIMT fp32 GEMM of the upcast operands the tensor cores sum
+# the same exact products less exactly: the logits' largest difference read
+# 9.0e-6 of the largest logit (K 6,144), the fp32 dH 3.9e-5 (K 32,768) and
+# dW 1.0e-5 (K 6,144) on an H100 (700 W). Limits ~10x (logits) and ~2.5x
+# (dH) above; the gradient rounded once to bf16 reads ~2e-3 and must miss
+# the gradients' limit.
+LOGIT_RTOL, LOGIT_GRAD_RTOL = 1e-4, 1e-4
+# lse, the NLL sum and the loss (read 1.3e-6): rows' sums of the above
+LOGIT_LOSS_RTOL = 1e-5
+# the split alone, both GEMMs SIMT fp32: 16 bits of the gradient. Read
+# 3.0e-6: the one-hot entries are -1/3072 (rows), which bf16 cannot hold,
+# and each keeps up to 2**-18 of itself off (at most 3.8e-6 in all); the
+# CPU test's 1/256, which bf16 holds, reads 3.9e-7
+LOGIT_SPLIT_RTOL = 1e-5
+# the bf16 gradients through the loss (read 4.4e-4 and 2.4e-4): two
+# roundings of fp32 values ~1e-5 apart differ by at most one bf16 step
+# (2**-8 relative) an element
+LOGIT_BF16_GRAD_RTOL = 2**-8
+
+
+def logits_check(torch, dev) -> dict:
+    """Phase 8.0: the loss's logit GEMMs at mixtral-train's chunk, the
+    tensor-core path (``common._LogitsF32``) against the fp32 upcast on the
+    same tensors: logits, lse, the chunk's NLL sum, the fp32 dH and dW from
+    one logit gradient (and that gradient rounded once to bf16, which the
+    limit must refuse; and the split alone, in SIMT fp32), then the loss
+    forward and backward through ``cross_entropy_chunked`` both ways (the
+    counters must move by two forwards and one backward on the new path
+    only); the CUDA-event ms of a chunk's forward and backward both ways."""
+    from repro_torch.models import common
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn((LOGIT_B, LOGIT_C, LOGIT_D), generator=gen, device=dev).bfloat16()
+    w = (0.02 * torch.randn((LOGIT_V, LOGIT_D), generator=gen, device=dev)).bfloat16()
+    y = torch.randint(0, LOGIT_V, (LOGIT_B, LOGIT_C), generator=gen, device=dev)
+    h2d, rows = h.reshape(-1, LOGIT_D), torch.arange(LOGIT_B * LOGIT_C, device=dev)
+    h32, w32 = h2d.float(), w.float()
+    new = common._LogitsF32.apply(h2d, w)
+    up = h32 @ w32.T
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def nll_sum(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse, (lse - logits[rows, y.flatten()]).sum()
+
+    lse_n, nll_n = nll_sum(new)
+    lse_u, nll_u = nll_sum(up)
+    out = dict(logits_rel=((new - up).abs().max() / up.abs().max()).item(),
+               lse_rel=rel(lse_n, lse_u), nll_rel=abs(nll_n.item() - nll_u.item()) / nll_u.item())
+    del new, lse_n, lse_u
+    d = torch.softmax(up, dim=-1)
+    del up
+    d[rows, y.flatten()] -= 1.0
+    d /= rows.numel()
+    dh_u, dw_u = d @ w32, d.T @ h32
+    dh_n, dw_n = common._logit_grads(d, h2d, w)
+    out.update(dh_rel=rel(dh_n, dh_u), dw_rel=rel(dw_n, dw_u))
+    dh_n, dw_n = common._logit_grads(d.bfloat16().float(), h2d, w)
+    out.update(dh_rounded_once_rel=rel(dh_n, dh_u), dw_rounded_once_rel=rel(dw_n, dw_u))
+    hi = d.bfloat16()
+    split = hi.float() + (d - hi.float()).bfloat16().float()
+    out.update(dh_split_rel=rel(split @ w32, dh_u), dw_split_rel=rel(split.T @ h32, dw_u))
+    del dh_u, dw_u, dh_n, dw_n, hi, split
+
+    def loss_grads():
+        hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        loss, _ = common.cross_entropy_chunked(hh, ww, y, chunk=LOGIT_C, z_loss_weight=1e-4)
+        loss.backward()
+        return loss.detach(), hh.grad, ww.grad
+
+    counts = (common._LogitsF32.forwards, common._LogitsF32.backwards)
+    loss_n, gh_n, gw_n = loss_grads()
+    moved = (common._LogitsF32.forwards - counts[0], common._LogitsF32.backwards - counts[1])
+    pick = common._tensor_core_logits
+    common._tensor_core_logits = lambda a, b: False
+    try:
+        counts = (common._LogitsF32.forwards, common._LogitsF32.backwards)
+        loss_u, gh_u, gw_u = loss_grads()
+        still = (common._LogitsF32.forwards - counts[0], common._LogitsF32.backwards - counts[1])
+    finally:
+        common._tensor_core_logits = pick
+    out.update(loss_rel=abs(loss_n.item() - loss_u.item()) / loss_u.item(),
+               gh_rel=rel(gh_n.float(), gh_u.float()), gw_rel=rel(gw_n.float(), gw_u.float()),
+               counts_new=moved, counts_upcast=still)
+    del gh_n, gw_n, gh_u, gw_u
+
+    out["ms"] = dict(
+        forward_new=time_ms(torch, lambda: common._LogitsF32.apply(h2d, w), runs=5, reps=4),
+        forward_upcast=time_ms(torch, lambda: h2d.float() @ w.float().T, runs=5, reps=4),
+        backward_new=time_ms(torch, lambda: [g.bfloat16() for g in
+                                             common._logit_grads(d, h2d, w)], runs=5, reps=4),
+        backward_upcast=time_ms(torch, lambda: ((d @ w32).bfloat16(), (d.T @ h32).bfloat16()),
+                                runs=5, reps=4))
+    ok = (out["logits_rel"] <= LOGIT_RTOL and max(out["lse_rel"], out["nll_rel"],
+                                                  out["loss_rel"]) <= LOGIT_LOSS_RTOL
+          and max(out["dh_rel"], out["dw_rel"]) <= LOGIT_GRAD_RTOL
+          and min(out["dh_rounded_once_rel"], out["dw_rounded_once_rel"]) > LOGIT_GRAD_RTOL
+          and max(out["dh_split_rel"], out["dw_split_rel"]) <= LOGIT_SPLIT_RTOL
+          and max(out["gh_rel"], out["gw_rel"]) <= LOGIT_BF16_GRAD_RTOL
+          and moved == (2, 1) and still == (0, 0))
+    ms = out["ms"]
+    print(f"[8] loss logits, {LOGIT_B} x {LOGIT_C} rows, d {LOGIT_D}, vocab {LOGIT_V}, bf16: "
+          f"tensor-core path vs fp32 upcast: logits max |d| {out['logits_rel']:.2e} of max "
+          f"(limit {LOGIT_RTOL:g}); lse {out['lse_rel']:.2e}, NLL sum {out['nll_rel']:.2e}, "
+          f"loss {out['loss_rel']:.2e} (limit {LOGIT_LOSS_RTOL:g}); fp32 dH {out['dh_rel']:.2e}, "
+          f"dW {out['dw_rel']:.2e} (limit {LOGIT_GRAD_RTOL:g}; the gradient rounded once to "
+          f"bf16: {out['dh_rounded_once_rel']:.2e}, {out['dw_rounded_once_rel']:.2e}, must "
+          f"exceed it; the split alone in SIMT fp32: {out['dh_split_rel']:.2e}, "
+          f"{out['dw_split_rel']:.2e}, limit {LOGIT_SPLIT_RTOL:g}); bf16 grads through the "
+          f"loss {out['gh_rel']:.2e}, {out['gw_rel']:.2e} (limit {LOGIT_BF16_GRAD_RTOL:g}); "
+          f"forwards, backwards of _LogitsF32: {moved} (upcast run {still}) "
+          f"{'ok' if ok else 'FAIL'}")
+    print(f"[8] loss logits, one chunk, ms (CUDA events, median of 5 x 4): forward "
+          f"{ms['forward_new']:.3f} vs upcast {ms['forward_upcast']:.3f}; backward (dH, dW, cast) "
+          f"{ms['backward_new']:.3f} vs upcast {ms['backward_upcast']:.3f}")
+    if not ok:
+        raise AssertionError("the tensor-core logit GEMMs differ from the fp32 upcast")
+    del h, w, y, h2d, d, h32, w32
+    torch.cuda.empty_cache()
+    return out
 
 
 KNOB_LAYERS, KNOB_B, KNOB_S = 4, 2, 1024
@@ -1820,8 +1964,9 @@ def train_run(torch, P, cfg, dev, *, steps, faults, counters, label, tag="8"):
 
 
 def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
-    """Phase 8: the resilient trainer. Card vs CPU and bf16 vs fp32 checks on
-    the 2-layer cut, the data digest, then full-width llama3.2-3b through
+    """Phase 8: the resilient trainer. The loss's logit GEMMs at
+    mixtral-train's chunk; card vs CPU and bf16 vs fp32 checks on the
+    2-layer cut, the data digest, then full-width llama3.2-3b through
     TRAIN_FAULTS (the main path: every step once, repairs at 2 and 4, 8 -> 7
     -> 6 shards, finite losses, no kernel launched) with a profiled
     fault-free step, then full-width mamba2-130m for MAMBA_TRAIN_STEPS."""
@@ -1831,6 +1976,7 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
 
     llama, mamba = cfgs
     base = torch.cuda.memory_allocated()
+    logits = logits_check(torch, dev)
     checks = train_checks(torch, api, llama, dev)
     torch.cuda.empty_cache()
     checks["knobs"] = knob_checks(torch, api, llama, dev)
@@ -1879,7 +2025,7 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
                    tokens_per_s=[r["tokens_per_s"] for r in records],
                    loss=[r["loss"] for r in records], peak_bytes=peak,
                    median_fault_free_ms=statistics.median(steady), profile=prof,
-                   launches=launches, one_rank=one_rank, **checks)
+                   launches=launches, one_rank=one_rank, logits=logits, **checks)
     del trainer             # its state getters hold it weakly: freed here, no gc.collect
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() - base

@@ -13,7 +13,8 @@ reference does and its exp, sin and cos in float64, rounded to fp32.
 
 ``cross_entropy_chunked`` is the training loss: fp32 logits a sequence chunk
 at a time, each chunk checkpointed so no chunk's logits are kept for the
-backward.
+backward. On the card, bf16 operands go to the tensor cores with fp32 sums
+(``_LogitsF32``); elsewhere they are upcast to fp32.
 """
 from __future__ import annotations
 
@@ -160,12 +161,84 @@ def embed_init(out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 # Loss
 # ----------------------------------------------------------------------------
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 matrices, summed and returned in fp32: one
+    ``aten::mm.dtype`` on the card; on the CPU, which has no kernel for it,
+    the GEMM of the operands upcast to fp32, whose products are the same."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _logit_grads(d: torch.Tensor, h: torch.Tensor, w: torch.Tensor):
+    """fp32 ``(d @ w, d.T @ h)``, the gradients of ``logits = h @ w.T`` from
+    the fp32 logit gradient ``d`` (N, V), with bf16 ``h`` (N, D), ``w`` (V, D).
+
+    ``d`` is truly fp32 (softmax less one-hot, the z-loss and softcap terms):
+    rounded once to bf16 it would keep 8 bits. It goes into the GEMMs as two
+    bf16 terms, ``hi = bf16(d)`` and ``lo = bf16(d - hi)`` (16 bits, below
+    the error of the GEMMs' fp32 sums over the vocabulary), stacked (2N, V)
+    so that each gradient is one GEMM: ``hi @ w + lo @ w`` as the halves of
+    one product added in fp32, and ``hi.T @ h + lo.T @ h`` in one fp32
+    accumulator.
+    """
+    n = d.shape[0]
+    split = torch.empty((2 * n, d.shape[1]), dtype=torch.bfloat16, device=d.device)
+    hi, lo = split[:n], split[n:]
+    hi.copy_(d)
+    torch.sub(d, hi, out=lo)               # the fp32 difference, rounded on the store
+    both = _mm_f32(split, w)
+    return both[:n] + both[n:], _mm_f32(split.t(), torch.cat([h, h]))
+
+
+class _LogitsF32(torch.autograd.Function):
+    """fp32 logits ``h @ unembed.T`` of bf16 ``h`` (N, D) and ``unembed``
+    (V, D) by one GEMM with fp32 sums and output (on the card, the tensor
+    cores). A product of two bf16 values is exact in fp32, so this is the
+    arithmetic of the fp32 GEMM of upcast operands, in another order of sums
+    (on an H100 the tensor cores' fp32 sums read 1e-5 to 4e-5 off the SIMT
+    GEMM's, relative: ``chip_smoke.py`` phase 8.0). The backward is
+    ``_logit_grads``, cast to the operands' dtypes as the upcast's backward
+    casts them. ``aten::mm.dtype`` has no derivative of its own, hence the
+    Function.
+
+    ``forwards`` and ``backwards`` count calls, as the kernels' ``launches``
+    do: with the chunk checkpointed, a chunk is two forwards and a backward.
+    """
+    forwards = 0
+    backwards = 0
+
+    @staticmethod
+    def forward(ctx, h, unembed):
+        _LogitsF32.forwards += 1
+        ctx.save_for_backward(h, unembed)
+        return _mm_f32(h, unembed.t())
+
+    @staticmethod
+    def backward(ctx, d):
+        _LogitsF32.backwards += 1
+        h, w = ctx.saved_tensors
+        dh, dw = _logit_grads(d, h, w)
+        return dh.to(h.dtype), dw.to(w.dtype)
+
+
+def _tensor_core_logits(h: torch.Tensor, unembed: torch.Tensor) -> bool:
+    """Whether a chunk's logits go through ``_LogitsF32``: both operands bf16,
+    plain tensors (no DTensor) on the card. The rest (the CPU, the dry-run's
+    meta DTensors, fp32 configs) upcast the operands."""
+    return (h.dtype == unembed.dtype == torch.bfloat16 and h.is_cuda and unembed.is_cuda
+            and type(h) is torch.Tensor and type(unembed) is torch.Tensor)
+
+
 def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, y: torch.Tensor,
                 logits_softcap: float):
-    """One chunk's (sum of NLL, sum of lse**2, correct count). The bf16
-    operands are upcast, so the products are exact and summed in fp32, as
-    the reference's ``preferred_element_type=float32`` einsum."""
-    logits = h.float() @ unembed.float().T                            # (B, c, V)
+    """One chunk's (sum of NLL, sum of lse**2, correct count). The logits are
+    fp32 sums of exact products of the bf16 operands, as the reference's
+    ``preferred_element_type=float32`` einsum."""
+    if _tensor_core_logits(h, unembed):
+        logits = _LogitsF32.apply(h.reshape(-1, h.shape[-1]), unembed).view(*h.shape[:-1], -1)
+    else:
+        logits = h.float() @ unembed.float().T                        # (B, c, V)
     logits = softcap(logits, logits_softcap)
     lse = torch.logsumexp(logits, dim=-1)                            # (B, c)
     tgt = take_last(logits, y)
