@@ -2,7 +2,13 @@
 
 Every assigned architecture is expressed as a :class:`ModelConfig`, field
 for field the same as the JAX package's, so a configuration means the same
-model in both. The config is a frozen dataclass: hashable and immutable.
+model in both. The port's own fields follow them: a layer pattern (layers
+of two kinds in one stack), a shared expert beside the routed ones, and
+the embedding, residual, logit and attention multipliers. They describe
+architectures only the port runs (``granite-4.0-h-small``; its lack of a
+positional embedding is ``rope_theta = 0``), and at their defaults every
+shared configuration is the model it was. The config is a frozen
+dataclass: hashable and immutable.
 ``use_pallas`` keeps its name and reads here as "use the hand-written
 kernel" (CUDA on the card, its plain PyTorch version on CPU tensors).
 """
@@ -37,8 +43,14 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
 
+    # --- layer pattern ---
+    # one period, a letter a layer: "A" attention, "M" a Mamba-2 block (the
+    # SSM fields below), repeated to n_layers; "" = every layer the family's
+    layer_pattern: str = ""
+
     # --- attention ---
-    rope_theta: float = 10000.0
+    rope_theta: float = 10000.0      # 0 = no positional embedding (NoPE)
+    attention_multiplier: float = 0.0  # the score scale; 0 = 1/sqrt(head_dim)
     sliding_window: int = 0          # 0 = full attention
     attn_logit_softcap: float = 0.0  # 0 = disabled (grok uses 30.0)
     attn_block_q: int = 512          # blocked-attention query tile
@@ -51,10 +63,14 @@ class ModelConfig:
     # --- embeddings ---
     tie_embeddings: bool = True
     scale_embeddings: bool = False   # gemma multiplies embeddings by sqrt(d_model)
+    embedding_multiplier: float = 1.0  # embeddings times this (granite: 12)
+    residual_multiplier: float = 1.0   # each branch times this as it joins the stream
+    logits_scaling: float = 1.0        # the logits divided by this
 
     # --- moe ---
     n_experts: int = 0
     experts_per_token: int = 0
+    shared_d_ff: int = 0             # >0: a shared expert this wide beside the routed ones
     moe_capacity_factor: float = 1.25
     moe_group_size: int = 4096       # tokens per dispatch group
     moe_aux_loss_weight: float = 0.01
@@ -120,6 +136,19 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def layer_kinds(self) -> str:
+        """Each layer's mixer, a letter a layer: "A" attention, "M" a Mamba-2
+        block, "H" both side by side (the hybrid family's layer). Under
+        ``layer_pattern`` its period repeated to ``n_layers``; else the
+        family's letter on every layer."""
+        period = self.layer_pattern
+        if set(period) - {"A", "M"}:
+            raise ValueError(f"layer_pattern {period!r}: one letter a layer, A or M")
+        if not period:
+            period = {"hybrid": "H", "ssm": "M"}.get(self.family, "A")
+        return (period * -(-self.n_layers // len(period)))[:self.n_layers]
+
     def gated_mlp(self) -> bool:
         return self.activation in ("silu", "geglu")
 
@@ -143,26 +172,33 @@ class ModelConfig:
         extras = 3 * h + di                          # A_log, dt_bias, D, norm
         return in_proj + conv + out_proj + extras
 
-    def params_per_layer(self) -> int:
+    def shared_expert_params(self) -> int:
+        return 3 * self.d_model * self.shared_d_ff if self.shared_d_ff else 0
+
+    def mixer_params(self, kind: str) -> int:
+        """The mixer's parameters in a layer of ``kind`` (``layer_kinds``)."""
+        attn, ssm = self.attn_params(), self.ssm_params_per_layer()
+        # ssd_norm is already inside ssm_params_per_layer()
+        return {"A": attn, "M": ssm, "H": attn + ssm}[kind]
+
+    def params_per_layer(self, kind: str) -> int:
+        """One layer's parameters, in a layer of ``kind`` (``layer_kinds``)."""
         d = self.d_model
-        norms = 2 * d
         if self.family == "ssm":
             return self.ssm_params_per_layer() + d
         ffn = self.mlp_params_per_expert()
         if self.is_moe:
-            ffn = self.n_experts * ffn + self.d_model * self.n_experts
-        attn = self.attn_params()
-        if self.family == "hybrid":
-            # ssd_norm is already inside ssm_params_per_layer()
-            return attn + self.ssm_params_per_layer() + ffn + norms
-        return attn + ffn + norms
+            ffn = (self.n_experts * ffn + self.d_model * self.n_experts
+                   + self.shared_expert_params())
+        return self.mixer_params(kind) + ffn + 2 * d
 
     def embed_params(self) -> int:
         e = self.vocab_size * self.d_model
         return e if self.tie_embeddings else 2 * e
 
     def total_params(self) -> int:
-        n = self.n_layers * self.params_per_layer() + self.embed_params() + self.d_model
+        n = (sum(self.params_per_layer(kind) for kind in self.layer_kinds)
+             + self.embed_params() + self.d_model)
         if self.is_encoder_decoder:
             # encoder layers use plain self-attn + mlp; decoder adds cross-attn
             enc = self.n_encoder_layers * (self.attn_params() + self.mlp_params_per_expert() + 2 * self.d_model)
@@ -175,9 +211,11 @@ class ModelConfig:
         if not self.is_moe:
             return self.total_params()
         d = self.d_model
-        ffn_active = self.experts_per_token * self.mlp_params_per_expert()
-        per_layer = self.attn_params() + ffn_active + 2 * d + d * self.n_experts
-        return self.n_layers * per_layer + self.embed_params() + d
+        # beside the mixer: the experts a token uses, the router and the norms
+        rest = (self.experts_per_token * self.mlp_params_per_expert()
+                + self.shared_expert_params() + d * self.n_experts + 2 * d)
+        return (sum(self.mixer_params(kind) + rest for kind in self.layer_kinds)
+                + self.embed_params() + d)
 
 
 @dataclass(frozen=True)

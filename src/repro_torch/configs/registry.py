@@ -25,13 +25,22 @@ _ARCH_MODULES: dict[str, str] = {
     "hymba-1.5b": "hymba_1_5b",
 }
 
+# architectures only the port runs: resolvable by id, outside the grid the
+# port shares with the JAX package (``ARCH_IDS``, ``iter_cells``)
+_PORT_ONLY_MODULES: dict[str, str] = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
 ARCH_IDS: tuple[str, ...] = tuple(_ARCH_MODULES)
+PORT_ONLY_IDS: tuple[str, ...] = tuple(_PORT_ONLY_MODULES)
 
 
 def _module(arch: str):
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; available: {', '.join(ARCH_IDS)}")
-    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    name = _ARCH_MODULES.get(arch) or _PORT_ONLY_MODULES.get(arch)
+    if name is None:
+        known = ", ".join(ARCH_IDS + PORT_ONLY_IDS)
+        raise KeyError(f"unknown arch {arch!r}; available: {known}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs.registry import ARCH_IDS, PORT_ONLY_IDS, get_config, get_smoke_config
 from repro_torch.core import FaultInjector, LegioPolicy
 from repro_torch.data import threefry
 from repro_torch.device import resolve_device
@@ -156,7 +156,7 @@ class ResilientServer:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3.2-3b")
+    ap.add_argument("--arch", choices=ARCH_IDS + PORT_ONLY_IDS, default="llama3.2-3b")
     ap.add_argument("--full", action="store_true",
                     help="the published widths and depth (default: smoke config)")
     ap.add_argument("--requests", type=int, default=64)

@@ -231,14 +231,17 @@ def _tensor_core_logits(h: torch.Tensor, unembed: torch.Tensor) -> bool:
 
 
 def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, y: torch.Tensor,
-                logits_softcap: float):
+                logits_softcap: float, logits_scaling: float = 1.0):
     """One chunk's (sum of NLL, sum of lse**2, correct count). The logits are
     fp32 sums of exact products of the bf16 operands, as the reference's
-    ``preferred_element_type=float32`` einsum."""
+    ``preferred_element_type=float32`` einsum, divided by ``logits_scaling``
+    where it is not 1."""
     if _tensor_core_logits(h, unembed):
         logits = _LogitsF32.apply(h.reshape(-1, h.shape[-1]), unembed).view(*h.shape[:-1], -1)
     else:
         logits = h.float() @ unembed.float().T                        # (B, c, V)
+    if logits_scaling != 1.0:
+        logits = logits / logits_scaling
     logits = softcap(logits, logits_softcap)
     lse = torch.logsumexp(logits, dim=-1)                            # (B, c)
     tgt = take_last(logits, y)
@@ -254,6 +257,7 @@ def cross_entropy_chunked(
     chunk: int,
     z_loss_weight: float = 0.0,
     logits_softcap: float = 0.0,
+    logits_scaling: float = 1.0,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Mean NLL over all tokens without materialising (B, S, V) logits.
 
@@ -272,7 +276,7 @@ def cross_entropy_chunked(
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         nll, z, corr = checkpoint(_xent_chunk, hidden[:, sl], unembed, labels[:, sl],
-                                  logits_softcap, use_reentrant=False)
+                                  logits_softcap, logits_scaling, use_reentrant=False)
         nll_sum, z_sum, correct = nll_sum + nll, z_sum + z, correct + corr
     n_tok = B * S
     loss = nll_sum / n_tok

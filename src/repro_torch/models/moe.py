@@ -54,6 +54,12 @@ any recompute, in the same order: a rank with no tokens of its own runs a
 stand-in batch (``rows`` None) that writes nothing into the buffer and
 keeps no choice. Without a span (one rank, serving, the dry-run) the code
 path is the reference's.
+
+**A shared expert** (``cfg.shared_d_ff > 0``, granite's): one gated MLP of
+that width that every token passes through, its output added to the routed
+experts' combined output. Its leaves ``shared_gate``, ``shared_in`` (D, Fs)
+and ``shared_out`` (Fs, D) sit beside the experts'; it runs under the
+``model.moe.shared`` region. Without it nothing is drawn or run.
 """
 from __future__ import annotations
 
@@ -201,13 +207,15 @@ def _dispatch_combine(cfg: ModelConfig, p: dict, x: torch.Tensor, route: tuple,
 
 
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, MoEMetrics]:
-    """x: (T, D) -> (T, D). p: router (D,E) fp32, we_in/we_gate (E,D,F), we_out (E,F,D)."""
+    """x: (T, D) -> (T, D). p: router (D,E) fp32, we_in/we_gate (E,D,F), we_out (E,F,D),
+    and the shared expert's leaves where ``cfg.shared_d_ff`` (module docstring)."""
     if _SPAN is not None:
         return _moe_ffn_spanned(cfg, p, x, _SPAN)
     T, D = x.shape
     E = cfg.n_experts
     g = min(cfg.moe_group_size, T)
     n = (T + g - 1) // g
+    tokens = x
     if n * g > T:
         x = F.pad(x, (0, 0, 0, n * g - T))
     # batched (not looped) groups; the group dim shards over the data axes
@@ -225,7 +233,18 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
         *route, aux, z, dropped = _route_group(cfg, logits, C)
     y = _dispatch_combine(cfg, p, xg, route, C, torch.arange(n, device=x.device)[:, None], n,
                           buffer_of=x)
-    return y.reshape(n * g, D)[:T], MoEMetrics(aux.mean(), z.mean(), dropped.mean())
+    y = _with_shared(cfg, p, tokens, y.reshape(n * g, D)[:T])
+    return y, MoEMetrics(aux.mean(), z.mean(), dropped.mean())
+
+
+def _with_shared(cfg: ModelConfig, p: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The routed experts' output ``y`` plus the shared expert's of ``x``
+    (both (T, D)), where the config has one."""
+    if not cfg.shared_d_ff:
+        return y
+    with tracing.region("model.moe.shared"):
+        mid = activation_fn(cfg.activation)(x @ p["shared_gate"]) * (x @ p["shared_in"])
+        return y + shard_heads(mid, cfg.act_shard) @ p["shared_out"]
 
 
 def _moe_ffn_spanned(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -255,7 +274,7 @@ def _moe_ffn_spanned(cfg: ModelConfig, p: dict, x: torch.Tensor,
     used, group_of = torch.unique(at // g, return_inverse=True)
     y = _dispatch_combine(cfg, p, x, (expert_idx, slot, keep, gates), C, group_of,
                           used.numel())
-    return y, MoEMetrics(aux.mean(), z.mean(), dropped.mean())
+    return _with_shared(cfg, p, x, y), MoEMetrics(aux.mean(), z.mean(), dropped.mean())
 
 
 def moe_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
@@ -266,6 +285,10 @@ def moe_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
              "we_out": ((L, E, F_, D), dt)}
     if cfg.gated_mlp():
         specs["we_gate"] = ((L, E, D, F_), dt)
+    if cfg.shared_d_ff:
+        Fs = cfg.shared_d_ff
+        specs.update(shared_gate=((L, D, Fs), dt), shared_in=((L, D, Fs), dt),
+                     shared_out=((L, Fs, D), dt))
     return specs
 
 
@@ -279,7 +302,7 @@ def init_moe_params(cfg: ModelConfig, n_layers: int, generator: torch.Generator,
         w = torch.empty(shape, dtype=torch.float32 if dt == "float32" else dtype,
                         device=device)
         for i in range(n_layers):
-            if name == "router":
+            if name == "router" or name.startswith("shared_"):
                 dense_init(w[i], generator)
                 continue
             for e in range(cfg.n_experts):

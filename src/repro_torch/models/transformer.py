@@ -15,6 +15,23 @@ windowed attention and a Mamba-2 block side by side on the same input,
 cache **in place** and returns the same tensors, where the JAX package
 returns fresh arrays; a caller that needs the old cache clones it first.
 
+**Layer kinds** (``cfg.layer_kinds``): each layer's mixer is attention
+("A"), the hybrid's Mamba-2 block alone ("M"), or both ("H", every layer
+of the hybrid family); a layer pattern (``cfg.layer_pattern``, granite's
+``MMMMMAMMMM``) mixes the first two in one stack. The attention leaves
+are stacked over the layers that attend and the ``ssm`` leaves over those
+that run a Mamba-2 block; a layer takes each mixer from its stack at its
+rank among those layers (norms and FFN are stacked over all). So is the
+cache: ``k``/``v`` ``(L_A, ...)`` and ``conv``/``state`` ``(L_M, ...)``.
+Without a pattern every rank is the layer's index. The port's own
+multipliers sit where granite's modelling code has them: the embeddings
+times ``embedding_multiplier``, each branch times ``residual_multiplier``
+as it joins the stream, the logits divided by ``logits_scaling``; a score
+scale of its own (``attention_multiplier``) is folded into q, since every
+attention path divides by ``sqrt(head_dim)`` (in bf16 this rounds q a
+second time); ``rope_theta = 0`` is no positional embedding (``apply_rope``
+returns its input). At their defaults none of them issues an operation.
+
 A MoE layer (``cfg.n_experts > 0``) runs ``moe.moe_ffn`` in place of the
 MLP; its load-balance and router-z losses and dropped fraction are averaged
 over layers (``forward_hidden``'s aux dict) and ``train_loss`` adds the two
@@ -87,16 +104,44 @@ DOTS_SAVEABLE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # init
 # ----------------------------------------------------------------------------
 
+# a layer kind's mixer subtrees, and the cache entries of each
+_MIXERS = {"A": ("attn",), "M": ("ssm",), "H": ("attn", "ssm")}
+_CACHE = {"attn": ("k", "v"), "ssm": ("conv", "state")}
+
+
+def _mixer_ranks(cfg: ModelConfig) -> list[dict[str, int]]:
+    """Each layer's mixer subtrees (``cfg.layer_kinds``), each with the
+    layer's rank among the layers that run that mixer."""
+    seen = {"attn": 0, "ssm": 0}
+    out = []
+    for kind in cfg.layer_kinds:
+        ranks = {}
+        for name in _MIXERS[kind]:
+            ranks[name] = seen[name]
+            seen[name] += 1
+        out.append(ranks)
+    return out
+
+
+def _mixer_counts(cfg: ModelConfig) -> tuple[int, int]:
+    """How many layers attend and how many run a Mamba-2 block."""
+    kinds = cfg.layer_kinds
+    return sum(k in "AH" for k in kinds), sum(k in "MH" for k in kinds)
+
+
 def param_specs(cfg: ModelConfig) -> Params:
     """The parameter pytree's leaves as ``(shape, dtype name)`` pairs."""
     L, D, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     dt = cfg.param_dtype
+    n_attn, n_ssm = _mixer_counts(cfg)
     layers: Params = {
         "attn_norm": ((L, D), dt),
         "mlp_norm": ((L, D), dt),
-        "attn": {"wq": ((L, D, cfg.q_dim), dt), "wk": ((L, D, cfg.kv_dim), dt),
-                 "wv": ((L, D, cfg.kv_dim), dt), "wo": ((L, cfg.q_dim, D), dt)},
     }
+    if n_attn:
+        A = n_attn
+        layers["attn"] = {"wq": ((A, D, cfg.q_dim), dt), "wk": ((A, D, cfg.kv_dim), dt),
+                          "wv": ((A, D, cfg.kv_dim), dt), "wo": ((A, cfg.q_dim, D), dt)}
     if cfg.is_moe:
         layers["moe"] = moe_mod.moe_param_specs(cfg, L)
     else:
@@ -104,8 +149,8 @@ def param_specs(cfg: ModelConfig) -> Params:
         if cfg.gated_mlp():
             mlp["w_gate"] = ((L, D, F), dt)
         layers["mlp"] = mlp
-    if cfg.family == "hybrid":
-        layers["ssm"] = ssd_mod.ssm_param_specs(cfg, L)
+    if n_ssm:
+        layers["ssm"] = ssd_mod.ssm_param_specs(cfg, n_ssm)
     specs: Params = {
         "embed": ((cfg.vocab_size, D), dt),
         "final_norm": ((D,), dt),
@@ -141,10 +186,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "mlp_norm": torch.zeros(specs["layers"]["mlp_norm"][0], dtype=dtype, device=device),
     }
     for group in ("attn",) if cfg.is_moe else ("attn", "mlp"):
+        if group not in specs["layers"]:
+            continue
         layers[group] = {}
         for name, (shape, _) in specs["layers"][group].items():
             w = empty(shape)
-            for i in range(L):
+            for i in range(shape[0]):
                 dense_init(w[i], generator, scale=out_scale.get(name))
             layers[group][name] = w
     params: Params = {
@@ -154,8 +201,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if cfg.is_moe:
         layers["moe"] = moe_mod.init_moe_params(cfg, L, generator, device, dtype)
-    if cfg.family == "hybrid":
-        layers["ssm"] = ssd_mod.init_ssm_params(cfg, L, generator, device, dtype)
+    n_ssm = _mixer_counts(cfg)[1]
+    if n_ssm:
+        layers["ssm"] = ssd_mod.init_ssm_params(cfg, n_ssm, generator, device, dtype)
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(empty(specs["unembed"][0]), generator)
     return params
@@ -163,6 +211,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def unembed_matrix(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+def _layer_views(cfg: ModelConfig, layers: Params) -> list[Params]:
+    """Each layer's parameters as views into the stacks, each leaf
+    ``unbind``-ed once as ``layer_params`` does: the norms and FFN at the
+    layer's index, each mixer it runs at its rank among the layers that
+    run that mixer."""
+    per_key = {name: layer_params(sub) if isinstance(sub, dict) else sub.unbind(0)
+               for name, sub in layers.items()}
+    return [{name: views[ranks.get(name, i)] for name, views in per_key.items()
+             if name not in _CACHE or name in ranks}
+            for i, ranks in enumerate(_mixer_ranks(cfg))]
+
+
+def _scaled_q(cfg: ModelConfig, q: torch.Tensor) -> torch.Tensor:
+    """q with the config's own score scale folded in (module docstring)."""
+    if not cfg.attention_multiplier:
+        return q
+    return q * (cfg.attention_multiplier * cfg.head_dim ** 0.5)
+
+
+def _join(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The residual stream ``x`` with the branch ``y`` joined to it, scaled by
+    ``residual_multiplier`` where that is not 1 (one rounding)."""
+    if cfg.residual_multiplier == 1.0:
+        return x + y
+    return torch.add(x, y, alpha=cfg.residual_multiplier)
 
 
 # ----------------------------------------------------------------------------
@@ -178,7 +253,7 @@ def _attn_branch(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         v = split_last(h @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        o = attention(q, k, v, cfg, causal=True, window=window)
+        o = attention(_scaled_q(cfg, q), k, v, cfg, causal=True, window=window)
         return merge_last(o) @ lp["wo"], k, v
 
 
@@ -202,6 +277,8 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None,
     if cfg.scale_embeddings:
         # the scale rounded to the activation dtype first, as the reference
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return x
 
 
@@ -217,25 +294,26 @@ def _ffn(cfg: ModelConfig, lp: Params, h2: torch.Tensor):
 
 
 def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor):
-    """One block. Returns (x, aux (3,), k, v, ssm cache or None)."""
+    """One block. Returns (x, aux (3,), k, v, ssm cache): k and v None in a
+    layer without attention, the ssm cache None in one without a Mamba-2
+    block. The layer's leaves say which mixers it runs (``_layer_views``)."""
     if cfg.fsdp_gather == "layer":
         lp = gather_fsdp(lp, cfg.act_shard)
     hybrid = cfg.family == "hybrid"
     window = cfg.hybrid_attn_window if hybrid else None
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    attn_out, k, v = _attn_branch(cfg, lp["attn"], h, positions, window=window)
-    ssm_cache = None
-    if hybrid:
+    out = k = v = ssm_cache = None
+    if "attn" in lp:
+        out, k, v = _attn_branch(cfg, lp["attn"], h, positions, window=window)
+    if "ssm" in lp:
         with tracing.region("model.ssd"):
             ssm_out, ssm_cache = ssd_mod.mamba_block(cfg, lp["ssm"], h)
-        x = x + 0.5 * (attn_out + ssm_out)
-    else:
-        x = x + attn_out
+        out = ssm_out if out is None else 0.5 * (out + ssm_out)
     # the row-parallel output projection leaves a partial sum: finish it here,
     # where GSPMD does, or DTensor carries it into the MLP and gathers w_in
-    x = shard_activations(x, cfg.act_shard)
+    x = shard_activations(_join(cfg, x, out), cfg.act_shard)
     y, aux = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
-    return shard_activations(x + y, cfg.act_shard), aux, k, v, ssm_cache
+    return shard_activations(_join(cfg, x, y), cfg.act_shard), aux, k, v, ssm_cache
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -273,15 +351,16 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None
     if cfg.fsdp_gather == "step":
         # ZeRO-2: gather the whole stacked weight set once per step
         layers = gather_fsdp(layers, cfg.act_shard)
-    layers = layer_params(layers)
+    layers = _layer_views(cfg, layers)
     auxes, ks, vs, ssm = [], [], [], []
     L, G = cfg.n_layers, cfg.scan_block
     if collect_kv:
         for lp in layers:
             x, aux, k, v, ssm_cache = _layer_fwd(cfg, lp, x, positions)
             auxes.append(aux)
-            ks.append(k)
-            vs.append(v)
+            if k is not None:
+                ks.append(k)
+                vs.append(v)
             if ssm_cache is not None:
                 ssm.append(ssm_cache)
     else:
@@ -308,7 +387,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor | None
     aux = torch.stack(auxes).mean(0)
     aux_losses = {"moe_aux": aux[0], "router_z": aux[1], "dropped": aux[2]}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    kv = (torch.stack(ks), torch.stack(vs), ssm or None) if collect_kv else None
+    kv = ((torch.stack(ks) if ks else None, torch.stack(vs) if vs else None, ssm or None)
+          if collect_kv else None)
     return x, aux_losses, kv
 
 
@@ -321,7 +401,7 @@ def train_loss(cfg: ModelConfig, params: Params,
         loss, metrics = cross_entropy_chunked(
             hidden, unembed_matrix(cfg, params), batch["labels"],
             chunk=cfg.xent_chunk, z_loss_weight=cfg.z_loss_weight,
-            logits_softcap=cfg.logits_softcap,
+            logits_softcap=cfg.logits_softcap, logits_scaling=cfg.logits_scaling,
         )
     if cfg.is_moe:
         loss = loss + cfg.moe_aux_loss_weight * aux["moe_aux"] \
@@ -334,6 +414,8 @@ def train_loss(cfg: ModelConfig, params: Params,
 def _logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
     # fp32 logits against an fp32 copy of the unembedding, as the reference
     logits = hidden.float() @ unembed_matrix(cfg, params).float().T
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     return softcap(logits, cfg.logits_softcap)
 
 
@@ -349,16 +431,15 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
     C = cache_len(cfg, max_len)
-    L = cfg.n_layers
-    shape = (L, batch, C, cfg.n_kv_heads, cfg.head_dim)
+    n_attn, n_ssm = _mixer_counts(cfg)
+    shape = (n_attn, batch, C, cfg.n_kv_heads, cfg.head_dim)
     dtype = torch_dtype(cfg.dtype)
-    cache = {
-        "pos": 0,
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
-    if cfg.family == "hybrid":
-        cache.update(ssd_mod.init_ssm_cache(cfg, L, batch, device, dtype))
+    cache: dict = {"pos": 0}
+    if n_attn:
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    if n_ssm:
+        cache.update(ssd_mod.init_ssm_cache(cfg, n_ssm, batch, device, dtype))
     return cache
 
 
@@ -377,16 +458,15 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int
     hidden, _, (k_all, v_all, ssm) = forward_hidden(cfg, params, tokens, embeds=embeds,
                                                     collect_kv=True)
     C = cache_len(cfg, max_len)
-    if S >= C:
-        # ring layout: slot = pos % C. Roll so absolute position p sits at p % C.
-        shift = S % C
-        k_cache = _roll_seq(k_all[:, :, S - C:], shift)
-        v_cache = _roll_seq(v_all[:, :, S - C:], shift)
-    else:
-        pad = (0, 0, 0, 0, 0, C - S)
-        k_cache = torch.nn.functional.pad(k_all, pad)
-        v_cache = torch.nn.functional.pad(v_all, pad)
-    cache = {"pos": S, "k": k_cache.contiguous(), "v": v_cache.contiguous()}
+    cache: dict = {"pos": S}
+    for name, t in (("k", k_all), ("v", v_all)):
+        if t is None:
+            continue
+        if S >= C:
+            # ring layout: slot = pos % C. Roll so absolute position p sits at p % C.
+            cache[name] = _roll_seq(t[:, :, S - C:], S % C).contiguous()
+        else:
+            cache[name] = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, C - S)).contiguous()
     if ssm is not None:
         cache.update(ssd_mod.stack_ssm_caches(ssm))
     return _logits(cfg, params, hidden[:, -1:, :]), cache
@@ -397,36 +477,45 @@ def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, lcache: dict,
     """One layer for one new token; writes its cache entries in place.
 
     ``lcache`` holds this layer's views of the stacked cache: ``k``/``v``
-    and, for the hybrid family, ``conv``/``state``.
+    where it attends, ``conv``/``state`` where it runs a Mamba-2 block.
     """
     B = x.shape[0]
-    k_cache, v_cache = lcache["k"], lcache["v"]
-    C = k_cache.shape[1]
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    with tracing.region("model.attention"):
-        q = split_last(h @ lp["attn"]["wq"], cfg.n_heads, cfg.head_dim)
-        k = split_last(h @ lp["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
-        v = split_last(h @ lp["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
-        pos_b = torch.full((B, 1), pos, device=x.device)
-        q = apply_rope(q, pos_b, cfg.rope_theta)
-        k = apply_rope(k, pos_b, cfg.rope_theta)
-        slot = pos % C
-        k_cache[:, slot] = k[:, 0]
-        v_cache[:, slot] = v[:, 0]
-        o = decode_attention(q, k_cache, v_cache, valid,
-                             logit_softcap=cfg.attn_logit_softcap, head_shard=cfg.act_shard)
-        attn_out = merge_last(o) @ lp["attn"]["wo"]
-    if cfg.family == "hybrid":
+    out = None
+    if "attn" in lp:
+        k_cache, v_cache = lcache["k"], lcache["v"]
+        C = k_cache.shape[1]
+        with tracing.region("model.attention"):
+            q = split_last(h @ lp["attn"]["wq"], cfg.n_heads, cfg.head_dim)
+            k = split_last(h @ lp["attn"]["wk"], cfg.n_kv_heads, cfg.head_dim)
+            v = split_last(h @ lp["attn"]["wv"], cfg.n_kv_heads, cfg.head_dim)
+            pos_b = torch.full((B, 1), pos, device=x.device)
+            q = apply_rope(q, pos_b, cfg.rope_theta)
+            k = apply_rope(k, pos_b, cfg.rope_theta)
+            slot = pos % C
+            k_cache[:, slot] = k[:, 0]
+            v_cache[:, slot] = v[:, 0]
+            o = decode_attention(_scaled_q(cfg, q), k_cache, v_cache, valid,
+                                 logit_softcap=cfg.attn_logit_softcap,
+                                 head_shard=cfg.act_shard)
+            out = merge_last(o) @ lp["attn"]["wo"]
+    if "ssm" in lp:
         with tracing.region("model.ssd"):
             ssm_in = ssd_mod.SSMCache(conv=lcache["conv"], state=lcache["state"])
             ssm_out, ssm_new = ssd_mod.mamba_decode_step(cfg, lp["ssm"], h, ssm_in)
             lcache["conv"].copy_(ssm_new.conv)
             lcache["state"].copy_(ssm_new.state)
-        x = x + 0.5 * (attn_out + ssm_out)
-    else:
-        x = x + attn_out
+        out = ssm_out if out is None else 0.5 * (out + ssm_out)
+    x = _join(cfg, x, out)
     y, _ = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"], cfg.norm_eps))
-    return x + y
+    return _join(cfg, x, y)
+
+
+def _layer_caches(cfg: ModelConfig, cache: dict):
+    """Each layer's views of the stacked cache (``_decode_layer``), layer by
+    layer: each mixer's entries at the layer's rank among its layers."""
+    return ({n: cache[n][rank] for name, rank in ranks.items() for n in _CACHE[name]}
+            for ranks in _mixer_ranks(cfg))
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
@@ -439,14 +528,16 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     x = _embed(cfg, params, tokens)
     B = x.shape[0]
     pos = cache["pos"]
-    C = cache["k"].shape[2]
-    if pos >= C:
-        valid = torch.ones((B, C), dtype=torch.bool, device=x.device)
-    else:
-        valid = (torch.arange(C, device=x.device) <= pos)[None, :].expand(B, C)
-    names = [n for n in ("k", "v", "conv", "state") if n in cache]
-    for i, lp in enumerate(layer_params(params["layers"])):
-        x = _decode_layer(cfg, lp, x, {n: cache[n][i] for n in names}, pos, valid)
+    valid = None
+    if "k" in cache:
+        C = cache["k"].shape[2]
+        if pos >= C:
+            valid = torch.ones((B, C), dtype=torch.bool, device=x.device)
+        else:
+            valid = (torch.arange(C, device=x.device) <= pos)[None, :].expand(B, C)
+    layers = _layer_views(cfg, params["layers"])
+    for lp, lcache in zip(layers, _layer_caches(cfg, cache)):
+        x = _decode_layer(cfg, lp, x, lcache, pos, valid)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1

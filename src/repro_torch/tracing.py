@@ -36,8 +36,11 @@ The spans, from the entry points down:
   repair.splice, checkpoint.{save,snapshot}, compile, dryrun.cell
 
 and the regions: model.attention, model.ssd, model.mlp,
-model.moe.{route,dispatch,experts,combine}, model.loss, optim.clip,
-optim.adamw.
+model.moe.{route,dispatch,experts,combine,shared}, model.loss, optim.clip,
+optim.adamw. A layer's mixer runs under model.attention or model.ssd (a
+hybrid layer's under both; under a layer pattern, an "A" layer's under the
+first and an "M" layer's under the second), and a shared expert under
+model.moe.shared.
 """
 from __future__ import annotations
 

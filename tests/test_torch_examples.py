@@ -126,7 +126,9 @@ def reference_weights(monkeypatch):
 
     def init(cfg, generator=None, device="cuda"):
         seed = 0 if generator is None else generator.initial_seed()
-        jcfg = JaxModelConfig(**dataclasses.asdict(cfg))
+        # the reference's fields: the port's own ones stay at their defaults here
+        jcfg = JaxModelConfig(**{f.name: getattr(cfg, f.name)
+                                 for f in dataclasses.fields(JaxModelConfig)})
         tree = jax.tree.map(np.asarray, jax_api.init_params(jcfg, jax.random.PRNGKey(seed)))
         return params_from_reference(cfg, tree, device=device)
 
