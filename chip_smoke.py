@@ -6,7 +6,7 @@
     python3 chip_smoke.py --train-only     # phases 1 and 8, then stop
     python3 chip_smoke.py --serve-only     # phases 1-2, 5-6 and 9, then stop
     python3 chip_smoke.py --families-only  # phases 1-2, 3's new flash shapes, 10
-    python3 chip_smoke.py --multirank-only # phases 1, 11 and 12 (builds quantize.cu only)
+    python3 chip_smoke.py --multirank-only # phases 1, 11 and 12 (builds quantize.cu, adamw.cu)
     python3 chip_smoke.py --dryrun-only    # phases 1, 2 (flash only) and 13
     python3 chip_smoke.py --examples-only  # phases 1, 2 (flash only) and 14
 
@@ -14,8 +14,8 @@ From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
 
   1. card identity: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build: the three CUDA sources (flash attention, SSD scan, the int8
-     absmax/quantize pair) from ``src/repro_torch/kernels/csrc`` with one
+  2. build: the four CUDA sources (flash attention, SSD scan, the int8
+     absmax/quantize pair, the optimizer) from ``src/repro_torch/kernels/csrc`` with one
      nvcc each, in parallel, timed, with each kernel's ptxas registers and
      spills;
   3. kernels vs plain, on the card:
@@ -102,6 +102,16 @@ never JAX or the JAX package, and runs, in order:
        to bf16 must miss, and the split alone within 1e-5; bf16 gradients
        through the loss within 2**-8), its counters, and the CUDA-event ms
        of a chunk's forward and backward both ways;
+     - 8.1, the optimizer kernels (``csrc/adamw.cu``) on mixtral-8x22b's
+       leaves at one layer, the experts cut from 8 to 4 (1.71 B parameters,
+       bf16 but the fp32 router) so that a second, eager copy fits: in fp32
+       and bf16 moments, the clip engaged and not, the norm the same bits
+       twice and within 1e-6 of the eager norm, the clipped gradients
+       bit-equal to the eager clip at the kernel's norm, the moments and
+       parameters after AdamW bit-equal to the eager update, the launches
+       counted; then the CUDA-event ms of the kernels and of the eager code
+       and the kernels' share of their byte bound (the norm reads g, the
+       clip reads and writes it, AdamW reads g, p, m, v and writes m, v, p);
      - llama3.2-3b cut to 2 layers at full width, weights drawn on the CPU:
        ``train_loss`` and its gradients on the card against the CPU in
        fp32 with TF32 off (loss within 1e-4, each gradient leaf within
@@ -113,8 +123,9 @@ never JAX or the JAX package, and runs, in order:
      - full-width llama3.2-3b through ``ResilientTrainer`` on 8 nodes in
        legions of 4, one 1024-token sequence a shard, 6 steps with faults
        (2, 1) and (4, 5): every step runs once, repairs at steps 2 and 4,
-       8 -> 7 -> 6 shards, finite losses, and no kernel launched (the
-       kernels are forward-only; training runs the plain paths, as the JAX
+       8 -> 7 -> 6 shards, finite losses, the optimizer's kernels launched
+       4 times a step, and no other kernel launched (the model's kernels
+       are forward-only; training runs the plain paths, as the JAX
        package's does); per-step loss, wall ms and tokens/s, the peak
        memory, and one fault-free step under the profiler;
      - full-width mamba2-130m for 3 fault-free steps the same way;
@@ -173,7 +184,8 @@ never JAX or the JAX package, and runs, in order:
         the AND of the bitmaps' rows and the sum of the blocks.
      A rank that fails, or runs past 600 s, stops every rank and the phase;
  12. the trainer over ranks (the earlier phases' tensors freed first; no
-     kernel launches: training runs the plain paths):
+     model kernel launches: training runs the plain paths; the optimizer
+     runs its kernels):
      a. NCCL at world size 1: phase 8's llama3.2-3b run (28 layers, 8 nodes
         in legions of 4, 1 x 1024 a shard, faults (2, 1) and (4, 5)) with the
         group that ``init_from_env("cuda")`` starts, so the trainer takes its
@@ -1578,7 +1590,7 @@ TRAIN_FAULTS = [(2, 1), (4, 5)]            # (step, node): 8 -> 7 -> 6 shards
 TRAIN_REPAIR_STEPS = [2, 4]
 TRAIN_SHARDS = [8, 8, 7, 7, 6, 6]
 MAMBA_TRAIN_STEPS = 3
-CHECK_B, CHECK_S = 2, 128                  # phases 8.1-8.2: the 2-layer cut's batch
+CHECK_B, CHECK_S = 2, 128                  # phases 8.2-8.3: the 2-layer cut's batch
 CARD_CPU_LOSS_RTOL, CARD_CPU_GRAD_RTOL = 1e-4, 1e-3
 BF16_LOSS_RTOL, BF16_GNORM_RTOL = 2e-2, 5e-2
 GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
@@ -1605,7 +1617,7 @@ def global_norm_of(torch, grads):
 
 
 def train_checks(torch, api, cfg, dev) -> dict:
-    """Phases 8.1-8.2 on ``cfg`` cut to 2 layers at full width: train_loss and
+    """Phases 8.2-8.3 on ``cfg`` cut to 2 layers at full width: train_loss and
     its gradients on the card against the CPU in fp32 (TF32 off), then bf16
     against fp32 on the card, all from one set of weights drawn on the CPU."""
     from repro_torch.data.pipeline import make_batch
@@ -1790,6 +1802,153 @@ KNOB_LOSS_RTOL, KNOB_GNORM_RTOL = 1e-5, 1e-4     # tests/test_perf_knobs.py's
 KNOBS = (("remat=full", {}), ("remat=dots", {"remat": "dots"}), ("scan_block=2", {"scan_block": 2}))
 
 
+# phase 8.1: the optimizer kernels on mixtral-train's leaves: mixtral-8x22b's
+# widths at one layer with the experts cut from 8 to OPT_EXPERTS, so that the
+# kernels' copy of the state and the eager copy fit on the card together
+OPT_EXPERTS = 4
+OPT_STEP = 7                      # the step the update is taken at (bias corrections < 1)
+OPT_NORM_RTOL = 1e-6              # the norm against the eager float32 sum (another order)
+OPT_LAUNCHES_A_STEP = 4           # 3 for the clip (sum of squares, norm, scale), 1 for AdamW
+
+
+def optimizer_check(torch, api, dev) -> dict:
+    """Phase 8.1: ``clip_by_global_norm_`` and ``adamw_update_`` through the
+    kernels (``kernels/adamw.py``) against the eager code on a copy of the
+    same leaves, in fp32 and bf16 moments, the clip engaged and not: the
+    norm deterministic (the same bits twice) and within OPT_NORM_RTOL of the
+    eager norm, the clipped gradients bit-equal to the eager clip at the
+    kernel's norm, the moments and parameters after AdamW bit-equal to the
+    eager update's, and the launches of each call counted. Then the
+    CUDA-event ms of both ways and the kernels' share of their byte bound."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import adamw as opt_kernels
+    from repro_torch.models.common import torch_dtype
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    _build.build(["adamw"])
+    print(f"[8.1] built csrc/adamw.cu in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_summary(_build.build_logs.get("adamw", "")):
+        print(f"[8.1] ptxas adamw: {line}")
+    cfg = get_config("mixtral-8x22b").replace(n_layers=1, n_experts=OPT_EXPERTS)
+    specs = api.param_specs(cfg)
+    n_params = sum(math.prod(shape) for shape, _ in adamw.tree_leaves(specs))
+    tc = TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(81)
+    bits = lambda t: t.reshape(-1).view(torch.uint8)   # noqa: E731
+    counts = (opt_kernels.clip_by_global_norm_cuda, opt_kernels.adamw_update_cuda)
+
+    def draw(scale, dtype=None, positive=False):
+        def leaf(spec):
+            shape, dt = spec
+            fn = torch.rand if positive else torch.randn
+            return fn(shape, generator=gen, device=dev, dtype=dtype or torch_dtype(dt)).mul_(scale)
+        return adamw.tree_map(leaf, specs)
+
+    def same(a_tree, b_tree):
+        return all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(adamw.tree_leaves(a_tree), adamw.tree_leaves(b_tree)))
+
+    def eager_clip(grads, scale):          # the clip kernels' plain version at a scale
+        with torch.no_grad():
+            for g in adamw.tree_leaves(grads):
+                g.copy_((g.float() * scale).to(g.dtype))
+
+    def eager_update(grads, state, params, lr):     # the AdamW kernel's plain version
+        bc1, bc2 = adamw._bias_corrections(state.step + 1, tc)
+        with torch.no_grad():
+            for g, m, v, p in zip(*(adamw.tree_leaves(t) for t in (grads, state.mu, state.nu,
+                                                                    params))):
+                p.add_(adamw._leaf_update(g, m, v, p, tc, lr, bc1, bc2))
+
+    cases, out = [], {}
+    for state_dtype in ("float32", "bfloat16"):
+        for max_norm in (1.0, 1e9):
+            params = draw(0.02)
+            grads = draw(4.0 / math.sqrt(n_params))        # a norm near 4
+            mdt = getattr(torch, state_dtype)
+            step = torch.tensor(OPT_STEP, dtype=torch.int32, device=dev)
+            state = adamw.OptState(step, draw(1e-4, mdt), draw(1e-6, mdt, positive=True))
+            copy = lambda tree: adamw.tree_map(torch.clone, tree)  # noqa: E731
+            e_params, e_grads = copy(params), copy(grads)
+            e_state = adamw.OptState(step, copy(state.mu), copy(state.nu))
+            lr = adamw.cosine_schedule(tc)(step)
+            before = [fn.launches for fn in counts]
+            first = adamw.clip_by_global_norm_(grads, 1e30)     # scale 1: g untouched
+            norm = adamw.clip_by_global_norm_(grads, max_norm)
+            launches = [fn.launches - b for fn, b in zip(counts, before)]
+            eager_norm = adamw.global_norm(e_grads)
+            scale = adamw._clip_scale(norm, max_norm)
+            eager_clip(e_grads, scale)
+            clip_same = same(grads, e_grads)
+            before = [fn.launches for fn in counts]
+            adamw.adamw_update_(grads, state, params, tc, lr)
+            launches.append(sum(fn.launches - b for fn, b in zip(counts, before)))
+            eager_update(e_grads, e_state, e_params, lr)
+            update_same = same(state.mu, e_state.mu) and same(state.nu, e_state.nu) \
+                and same(params, e_params)
+            rel = abs(norm.item() - eager_norm.item()) / eager_norm.item()
+            case = dict(state_dtype=state_dtype, max_norm=max_norm, norm=norm.item(),
+                        eager_norm=eager_norm.item(), norm_rel=rel, scale=scale.item(),
+                        deterministic=bool(torch.equal(bits(first), bits(norm))),
+                        clip_bit_equal=clip_same, adamw_bit_equal=update_same,
+                        clip_launches=launches[0] // 2, adamw_launches=launches[2])
+            want = (3, 1) if dev.type == "cuda" else (0, 0)    # the CPU runs the eager code
+            ok = case["deterministic"] and rel <= OPT_NORM_RTOL and clip_same and update_same \
+                and (case["clip_launches"], case["adamw_launches"]) == want
+            print(f"[8.1] {cfg.name} ({n_params} params, {OPT_EXPERTS} of "
+                  f"{get_config('mixtral-8x22b').n_experts} experts) moments {state_dtype}, "
+                  f"max_norm {max_norm:g}: norm {norm.item():.9g} (eager {eager_norm.item():.9g}, "
+                  f"rel {rel:.3e}, limit {OPT_NORM_RTOL:g}; the same bits twice: "
+                  f"{case['deterministic']}), scale {scale.item():.9g} (clip "
+                  f"{'engaged' if scale.item() < 1 else 'not engaged'}); clipped gradients "
+                  f"bit-equal to the eager clip at this norm: {clip_same}; moments and params "
+                  f"after AdamW bit-equal to the eager update: {update_same}; launches: clip "
+                  f"{case['clip_launches']}, AdamW {case['adamw_launches']} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"phase 8.1: the optimizer kernels differ from the eager "
+                                     f"optimizer: {case}")
+            if (scale.item() < 1) != (max_norm == 1.0):
+                raise AssertionError(f"phase 8.1: the clip was meant to be "
+                                     f"{'engaged' if max_norm == 1.0 else 'idle'}: {case}")
+            cases.append(case)
+            if state_dtype == "float32" and max_norm == 1.0:
+                # the byte bound: the norm reads g, the clip reads and writes it,
+                # AdamW reads g, p, m, v and writes m, v, p
+                leaves = [adamw.tree_leaves(t) for t in (grads, state.mu, state.nu, params)]
+                clip_bytes = sum(3 * g.nbytes for g in leaves[0])
+                adamw_bytes = sum(g.nbytes + 2 * (m.nbytes + v.nbytes + p.nbytes)
+                                  for g, m, v, p in zip(*leaves))
+                tiny = 1e-30          # every call scales g: the clip's writes always happen
+                k_clip = time_ms(torch, lambda: adamw.clip_by_global_norm_(grads, tiny), 5, 3)
+                k_adamw = time_ms(torch, lambda: adamw.adamw_update_(grads, state, params, tc,
+                                                                     lr), 5, 3)
+                e_clip = time_ms(torch, lambda: eager_clip(e_grads, adamw._clip_scale(
+                    adamw.global_norm(e_grads), tiny)), 3, 1, warmup=1)
+                e_adamw = time_ms(torch, lambda: eager_update(e_grads, e_state, e_params, lr),
+                                  3, 1, warmup=1)
+                bound = (clip_bytes + adamw_bytes) / PEAK_BYTES * 1e3
+                out["timing"] = dict(
+                    params=n_params, clip_bytes=clip_bytes,
+                    adamw_bytes=adamw_bytes, kernel_clip_ms=k_clip, kernel_adamw_ms=k_adamw,
+                    eager_clip_ms=e_clip, eager_adamw_ms=e_adamw, bound_ms=bound,
+                    share=bound / (k_clip + k_adamw))
+                print(f"[8.1] CUDA-event ms a step ({n_params} params): kernels "
+                      f"clip {k_clip:.3f} + AdamW {k_adamw:.3f} = {k_clip + k_adamw:.3f} ms; "
+                      f"eager clip {e_clip:.3f} + AdamW {e_adamw:.3f} = {e_clip + e_adamw:.3f} "
+                      f"ms; bound {bound:.3f} ms ({clip_bytes + adamw_bytes} B at "
+                      f"{PEAK_BYTES / 1e12:g} TB/s: clip {clip_bytes / PEAK_BYTES * 1e3:.3f}, "
+                      f"AdamW {adamw_bytes / PEAK_BYTES * 1e3:.3f}), the kernels at "
+                      f"{100 * out['timing']['share']:.1f}% of it")
+            del params, grads, state, e_params, e_grads, e_state
+            torch.cuda.empty_cache()
+    out["cases"] = cases
+    return out
+
+
 def knob_checks(torch, api, cfg, dev) -> dict:
     """Phase 8.3: ``cfg`` (bf16, remat full) cut to KNOB_LAYERS layers at full
     width (4, so that ``scan_block=2`` makes two blocks), weights drawn on the
@@ -1935,8 +2094,10 @@ def train_run(torch, P, cfg, dev, *, steps, faults, counters, label, tag="8"):
     with every kernel's count zeroed just before and read just after. Returns
     (trainer, per-step records, launches, peak bytes)."""
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import adamw as opt_kernels
 
     tc = TrainConfig(total_steps=steps, warmup_steps=max(steps // 10, 1))
+    optimizer = (opt_kernels.clip_by_global_norm_cuda, opt_kernels.adamw_update_cuda)
     cluster = P.VirtualCluster(TRAIN_NODES, policy=P.LegioPolicy(legion_size=TRAIN_LEGION),
                                injector=P.FaultInjector.at(faults), device=dev)
     trainer = P.ResilientTrainer(cfg, tc, cluster, per_shard_batch=1, seq_len=TRAIN_SEQ)
@@ -1946,18 +2107,25 @@ def train_run(torch, P, cfg, dev, *, steps, faults, counters, label, tag="8"):
         fn.launches = 0
     records = []
     for _ in range(steps):
+        before = sum(fn.launches for fn in optimizer)
         t0 = time.perf_counter()
         r = trainer.run_step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         tokens = r.active_shards * TRAIN_SEQ
+        opt_launches = sum(fn.launches for fn in optimizer) - before
         records.append(dict(step=r.step, loss=r.loss, grad_norm=r.grad_norm,
                             shards=r.active_shards, wall_ms=wall * 1e3,
-                            tokens_per_s=tokens / wall, repair=r.repair))
+                            tokens_per_s=tokens / wall, repair=r.repair,
+                            optimizer_launches=opt_launches))
         print(f"[{tag}] {label} step {r.step}: loss {r.loss:.6f} grad_norm {r.grad_norm:.4f} "
               f"shards {r.active_shards} wall_ms {wall * 1e3:.3f} (card synchronised) "
-              f"tokens_per_s {tokens / wall:.1f}"
+              f"tokens_per_s {tokens / wall:.1f} optimizer launches {opt_launches}"
               f"{' REPAIR ' + r.repair.summary() if r.repair else ''}")
+        want = OPT_LAUNCHES_A_STEP if dev.type == "cuda" else 0
+        if opt_launches != want:
+            raise AssertionError(f"{label} step {r.step}: the optimizer launched "
+                                 f"{opt_launches} kernels, not {want} on {dev.type}")
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     return trainer, records, launches, torch.cuda.max_memory_allocated()
@@ -1968,7 +2136,8 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
     mixtral-train's chunk; card vs CPU and bf16 vs fp32 checks on the
     2-layer cut, the data digest, then full-width llama3.2-3b through
     TRAIN_FAULTS (the main path: every step once, repairs at 2 and 4, 8 -> 7
-    -> 6 shards, finite losses, no kernel launched) with a profiled
+    -> 6 shards, finite losses, 4 optimizer launches a step and no other
+    kernel launched) with a profiled
     fault-free step, then full-width mamba2-130m for MAMBA_TRAIN_STEPS."""
     import hashlib
 
@@ -1977,6 +2146,8 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
     llama, mamba = cfgs
     base = torch.cuda.memory_allocated()
     logits = logits_check(torch, dev)
+    optimizer = optimizer_check(torch, api, dev)
+    torch.cuda.empty_cache()
     checks = train_checks(torch, api, llama, dev)
     torch.cuda.empty_cache()
     checks["knobs"] = knob_checks(torch, api, llama, dev)
@@ -2025,7 +2196,8 @@ def train_phase(torch, P, api, cfgs, dev, counters) -> dict:
                    tokens_per_s=[r["tokens_per_s"] for r in records],
                    loss=[r["loss"] for r in records], peak_bytes=peak,
                    median_fault_free_ms=statistics.median(steady), profile=prof,
-                   launches=launches, one_rank=one_rank, logits=logits, **checks)
+                   launches=launches, one_rank=one_rank, logits=logits, optimizer=optimizer,
+                   optimizer_launches=[r["optimizer_launches"] for r in records], **checks)
     del trainer             # its state getters hold it weakly: freed here, no gc.collect
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() - base
@@ -3005,7 +3177,7 @@ def main(argv: list[str]) -> int:
                 "absmax": quantize.absmax_cuda, "quantize_int8": quantize.quantize_int8_cuda}
     train_cfgs = (get_config("llama3.2-3b"), get_config("mamba2-130m"))
     if multirank_only:
-        lib_paths = _build.build(["quantize"])
+        lib_paths = _build.build(["quantize", "adamw"])
         print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)}")
         mr_launches = multirank_phase(torch, rt_core, rt_mpi, dev, counters)
         gc.collect()
@@ -3031,7 +3203,7 @@ def main(argv: list[str]) -> int:
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib_paths = _build.build(["flash_attention", "ssd_scan", "quantize"])
+    lib_paths = _build.build(["flash_attention", "ssd_scan", "quantize", "adamw"])
     print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} "
           f"in {time.perf_counter() - t0:.2f} s")
     for name, log in sorted(_build.build_logs.items()):

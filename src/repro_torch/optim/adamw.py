@@ -8,11 +8,14 @@ step tensor, not in Python doubles, and each elementwise product and sum
 is its own rounding (no fused multiply-add).
 
 ``adamw_update`` returns fresh updates and moments. The train step uses
-``adamw_update_``, which computes the same values leaf by leaf and writes
-the moments and parameters in place under ``torch.no_grad()``: the
-counterpart of the JAX step's ``donate_argnums``, so a step holds one
-leaf's float32 temporaries at a time rather than a second copy of the
-state.
+``clip_by_global_norm_`` and ``adamw_update_``, which write the clipped
+gradients, the moments and the parameters in place under
+``torch.no_grad()``: the counterpart of the JAX step's ``donate_argnums``.
+On CUDA leaves they launch the multi-tensor kernels of
+``repro_torch.kernels.adamw`` (the clip in three launches, AdamW in one,
+each over every leaf; bit-equal to the eager code on the same inputs, the
+norm summed in another order); elsewhere they run the eager code leaf by
+leaf, which is the kernels' plain version and oracle.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.configs.base import TrainConfig
+from repro_torch.kernels import adamw as kernels
 
 PyTree = Any
 
@@ -87,8 +91,11 @@ def clip_by_global_norm(grads: PyTree, max_norm: float) -> tuple[PyTree, torch.T
 
 
 def clip_by_global_norm_(grads: PyTree, max_norm: float) -> torch.Tensor:
-    """``clip_by_global_norm`` written into ``grads`` leaf by leaf; returns the norm."""
+    """``clip_by_global_norm`` written into ``grads`` in place; returns the norm."""
     with tracing.region("optim.clip"):
+        leaves = tree_leaves(grads)
+        if _on_card(leaves):
+            return kernels.clip_by_global_norm_cuda(leaves, max_norm)
         norm = global_norm(grads)
         scale = _clip_scale(norm, max_norm)
         with torch.no_grad():
@@ -161,7 +168,19 @@ def adamw_update_(grads: PyTree, state: OptState, params: PyTree, tc: TrainConfi
         step = state.step + 1
         bc1, bc2 = _bias_corrections(step, tc)
         with torch.no_grad():
-            def leaf(g, m, v, p):
-                p.add_(_leaf_update(g, m, v, p, tc, lr, bc1, bc2))
-            tree_map(leaf, grads, state.mu, state.nu, params)
+            leaves = [tree_leaves(t) for t in (grads, state.mu, state.nu, params)]
+            if _on_card(leaves[3]):
+                kernels.adamw_update_cuda(*leaves, lr=lr, bc1=bc1, bc2=bc2, beta1=tc.beta1,
+                                          beta2=tc.beta2, eps=tc.eps,
+                                          weight_decay=tc.weight_decay)
+            else:
+                def leaf(g, m, v, p):
+                    p.add_(_leaf_update(g, m, v, p, tc, lr, bc1, bc2))
+                tree_map(leaf, grads, state.mu, state.nu, params)
     return OptState(step=step, mu=state.mu, nu=state.nu)
+
+
+def _on_card(leaves: list) -> bool:
+    """Whether a leaf set takes the kernels: its first leaf is on a CUDA
+    device (the kernels' checks raise on any leaf they do not take)."""
+    return bool(leaves) and leaves[0].device.type == "cuda"

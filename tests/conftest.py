@@ -43,3 +43,8 @@ except ModuleNotFoundError:
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA device; skips without one "
+                                       "(decided inside the test)")
