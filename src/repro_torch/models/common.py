@@ -11,10 +11,10 @@ a PyTorch habit would be wrong here:
 ``sinusoidal_positions`` (the encoder-decoder's) takes its fp32 angles as the
 reference does and its exp, sin and cos in float64, rounded to fp32.
 
-``cross_entropy_chunked`` is the training loss: fp32 logits a sequence chunk
-at a time, each chunk checkpointed so no chunk's logits are kept for the
-backward. On the card, bf16 operands go to the tensor cores with fp32 sums
-(``_LogitsF32``); elsewhere they are upcast to fp32.
+``logits_f32`` forms the fp32 logits of the loss and of every family's
+prefill and decode. ``cross_entropy_chunked`` is the training loss: a
+sequence chunk at a time, each chunk checkpointed so no chunk's logits are
+kept for the backward.
 """
 from __future__ import annotations
 
@@ -194,16 +194,13 @@ def _logit_grads(d: torch.Tensor, h: torch.Tensor, w: torch.Tensor):
 class _LogitsF32(torch.autograd.Function):
     """fp32 logits ``h @ unembed.T`` of bf16 ``h`` (N, D) and ``unembed``
     (V, D) by one GEMM with fp32 sums and output (on the card, the tensor
-    cores). A product of two bf16 values is exact in fp32, so this is the
-    arithmetic of the fp32 GEMM of upcast operands, in another order of sums
-    (on an H100 the tensor cores' fp32 sums read 1e-5 to 4e-5 off the SIMT
-    GEMM's, relative: ``chip_smoke.py`` phase 8.0). The backward is
-    ``_logit_grads``, cast to the operands' dtypes as the upcast's backward
-    casts them. ``aten::mm.dtype`` has no derivative of its own, hence the
-    Function.
+    cores): ``logits_f32``'s path there. The backward is ``_logit_grads``,
+    cast to the operands' dtypes as the upcast's backward casts them.
+    ``aten::mm.dtype`` has no derivative of its own, hence the Function.
 
     ``forwards`` and ``backwards`` count calls, as the kernels' ``launches``
-    do: with the chunk checkpointed, a chunk is two forwards and a backward.
+    do: with the chunk checkpointed, a loss chunk is two forwards and a
+    backward; a prefill or decode step is one forward.
     """
     forwards = 0
     backwards = 0
@@ -223,26 +220,39 @@ class _LogitsF32(torch.autograd.Function):
 
 
 def _tensor_core_logits(h: torch.Tensor, unembed: torch.Tensor) -> bool:
-    """Whether a chunk's logits go through ``_LogitsF32``: both operands bf16,
-    plain tensors (no DTensor) on the card. The rest (the CPU, the dry-run's
-    meta DTensors, fp32 configs) upcast the operands."""
+    """Whether ``logits_f32`` takes ``_LogitsF32``: both operands bf16, plain
+    tensors (no DTensor), on the card."""
     return (h.dtype == unembed.dtype == torch.bfloat16 and h.is_cuda and unembed.is_cuda
             and type(h) is torch.Tensor and type(unembed) is torch.Tensor)
 
 
-def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, y: torch.Tensor,
-                logits_softcap: float, logits_scaling: float = 1.0):
-    """One chunk's (sum of NLL, sum of lse**2, correct count). The logits are
-    fp32 sums of exact products of the bf16 operands, as the reference's
-    ``preferred_element_type=float32`` einsum, divided by ``logits_scaling``
-    where it is not 1."""
+def logits_f32(h: torch.Tensor, unembed: torch.Tensor, *, scaling: float = 1.0,
+               cap: float = 0.0) -> torch.Tensor:
+    """fp32 logits (..., V) of ``h`` (..., D) against the unembedding (V, D),
+    divided by ``scaling`` where it is not 1, then soft-capped at ``cap``:
+    the one place the loss and every family's prefill and decode form them.
+
+    fp32, as the reference's (``preferred_element_type=float32`` in the loss,
+    an fp32 copy of the unembedding in serving). bf16 plain tensors on the
+    card take ``_LogitsF32`` and copy nothing: a product of two bf16 values
+    is exact in fp32, so this is the upcast GEMM's arithmetic with its sums
+    in another order (1e-5 to 4e-5 relative on an H100, ``chip_smoke.py``
+    phase 8.0). The rest (the CPU, fp32 configs, the dry-run's DTensors)
+    upcast the operands, so every CPU result is the upcast's.
+    """
     if _tensor_core_logits(h, unembed):
         logits = _LogitsF32.apply(h.reshape(-1, h.shape[-1]), unembed).view(*h.shape[:-1], -1)
     else:
-        logits = h.float() @ unembed.float().T                        # (B, c, V)
-    if logits_scaling != 1.0:
-        logits = logits / logits_scaling
-    logits = softcap(logits, logits_softcap)
+        logits = h.float() @ unembed.float().T
+    if scaling != 1.0:
+        logits = logits / scaling
+    return softcap(logits, cap)
+
+
+def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, y: torch.Tensor,
+                logits_softcap: float, logits_scaling: float = 1.0):
+    """One chunk's (sum of NLL, sum of lse**2, correct count)."""
+    logits = logits_f32(h, unembed, scaling=logits_scaling, cap=logits_softcap)  # (B, c, V)
     lse = torch.logsumexp(logits, dim=-1)                            # (B, c)
     tgt = take_last(logits, y)
     correct = (argmax_last(logits) == y).sum()

@@ -43,6 +43,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     layer_params,
+    logits_f32,
     rms_norm,
     sinusoid,
     sinusoid_inv_freq,
@@ -211,11 +212,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             "cross_k": zeros(cfg.encoder_seq_len), "cross_v": zeros(cfg.encoder_seq_len)}
 
 
-def _logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    # fp32 logits against an fp32 copy of the tied embedding, as the reference
-    return hidden.float() @ params["embed"].float().T
-
-
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int,
             *, embeds: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """Encode ``embeds``, run the prompt, build the decode cache. Returns
@@ -228,7 +224,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int
     cache = {"pos": S, "k": torch.nn.functional.pad(k_all, pad).contiguous(),
              "v": torch.nn.functional.pad(v_all, pad).contiguous(),
              "cross_k": ck, "cross_v": cv}
-    return _logits(params, hidden[:, -1:, :]), cache
+    return logits_f32(hidden[:, -1:, :], params["embed"]), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
@@ -267,4 +263,4 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return _logits(params, x), new_cache
+    return logits_f32(x, params["embed"]), new_cache

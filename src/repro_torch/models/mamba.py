@@ -31,6 +31,7 @@ from repro_torch.models.common import (
     cross_entropy_chunked,
     embed_init,
     layer_params,
+    logits_f32,
     rms_norm,
     torch_dtype,
 )
@@ -69,11 +70,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return take_rows(params["embed"], tokens).to(torch_dtype(cfg.dtype))
-
-
-def _logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    # fp32 logits against an fp32 copy of the (tied) embedding, as the reference
-    return hidden.float() @ params["embed"].float().T
 
 
 def _layer_fwd(cfg: ModelConfig, lp: Params, x: torch.Tensor):
@@ -130,7 +126,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     del max_len
     hidden, caches = forward_hidden(cfg, params, tokens, collect_state=True)
     cache = {"pos": tokens.shape[1], **ssd_mod.stack_ssm_caches(caches)}
-    return _logits(params, hidden[:, -1:, :]), cache
+    return logits_f32(hidden[:, -1:, :], params["embed"]), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: dict,
@@ -147,4 +143,4 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
             cache["state"][i].copy_(new.state)
         x = x + out
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x), {**cache, "pos": cache["pos"] + 1}
+    return logits_f32(x, params["embed"]), {**cache, "pos": cache["pos"] + 1}

@@ -89,8 +89,8 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     layer_params,
+    logits_f32,
     rms_norm,
-    softcap,
     torch_dtype,
 )
 
@@ -411,14 +411,6 @@ def train_loss(cfg: ModelConfig, params: Params,
     return loss, metrics
 
 
-def _logits(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    # fp32 logits against an fp32 copy of the unembedding, as the reference
-    logits = hidden.float() @ unembed_matrix(cfg, params).float().T
-    if cfg.logits_scaling != 1.0:
-        logits = logits / cfg.logits_scaling
-    return softcap(logits, cfg.logits_softcap)
-
-
 # ----------------------------------------------------------------------------
 # KV cache / decode
 # ----------------------------------------------------------------------------
@@ -469,7 +461,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, max_len: int
             cache[name] = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, C - S)).contiguous()
     if ssm is not None:
         cache.update(ssd_mod.stack_ssm_caches(ssm))
-    return _logits(cfg, params, hidden[:, -1:, :]), cache
+    return logits_f32(hidden[:, -1:, :], unembed_matrix(cfg, params),
+                      scaling=cfg.logits_scaling, cap=cfg.logits_softcap), cache
 
 
 def _decode_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, lcache: dict,
@@ -541,4 +534,5 @@ def decode_step(cfg: ModelConfig, params: Params, cache: dict,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return _logits(cfg, params, x), new_cache
+    return logits_f32(x, unembed_matrix(cfg, params), scaling=cfg.logits_scaling,
+                      cap=cfg.logits_softcap), new_cache
