@@ -9,13 +9,15 @@
     python3 chip_smoke.py --multirank-only # phases 1, 11 and 12 (builds quantize.cu, adamw.cu)
     python3 chip_smoke.py --dryrun-only    # phases 1, 2 (flash only) and 13
     python3 chip_smoke.py --examples-only  # phases 1, 2 (flash only) and 14
+    python3 chip_smoke.py --moe-only       # phases 1 and 15
 
 From the root of a checkout. It imports only the port (``src/repro_torch``),
 never JAX or the JAX package, and runs, in order:
 
   1. card identity: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build: the four CUDA sources (flash attention, SSD scan, the int8
-     absmax/quantize pair, the optimizer) from ``src/repro_torch/kernels/csrc`` with one
+  2. build: the five CUDA sources (flash attention, SSD scan, the int8
+     absmax/quantize pair, the optimizer, the served MoE dispatch and
+     combine) from ``src/repro_torch/kernels/csrc`` with one
      nvcc each, in parallel, timed, with each kernel's ptxas registers and
      spills;
   3. kernels vs plain, on the card:
@@ -268,7 +270,26 @@ never JAX or the JAX package, and runs, in order:
      (``--example-worker``), which zeroes every kernel count just before
      the twin starts and reads them when it ends; each must exit 0, and its
      wall seconds, launches and last lines are printed (logs in
-     ``build/examples/``).
+     ``build/examples/``);
+ 15. the served MoE dispatch and combine (``kernels/moe_dispatch.py``) at
+     the served cells' shapes, ``bench/configs/mixtral-8x22b-1l.json`` and
+     ``granite-4.0-h-small-10l.json``, bf16:
+     a. one MoE layer at the node batch's prefill (8 x 4,096 tokens), routed
+        by its router from seeded tokens: the gather bit-equal to its plain
+        version and to the eager path's buffer (expert-major), the expert
+        outputs bit-equal, the combine bit-equal to ``moe_combine_ordered``
+        and within one bf16 ulp of the eager ``einsum``, one launch each;
+        each kernel's CUDA-event ms beside its byte bound at 3.35 TB/s and
+        its plain version's ms, the layer's dispatch, experts and combine
+        eager and served, the three expert GEMMs alone, and the peak above
+        the inputs of each path;
+     b. one node batch of the whole cell (8 prompts of 4,096, 2 greedy
+        tokens) on the eager path (the parent's) and the served path, the
+        same weights: the greedy tokens equal, the prefill and decode
+        logits' largest difference over the largest logit, the served
+        peak not above the eager one, the launches (n_layers a step
+        served, none eager), the ms of each and one prefill of each under
+        the profiler (busy ms, top kernels).
 
 Any failed phase exits non-zero. Without a CUDA device it exits 1 and prints
 no result. The last three lines are the card's ``nvidia-smi`` line, the
@@ -3016,6 +3037,260 @@ def dryrun_phase(torch, api, dev, counters) -> dict:
 # each examples_torch/*.py on the card in a process of its own, at its
 # reference's default arguments or the CI form its reference documents,
 # EXAMPLE_PARALLEL at a time
+MOE_CELLS = ("mixtral-8x22b-1l", "granite-4.0-h-small-10l")   # bench/configs/<name>.json
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 8, 4096, 2   # the served cells' node batch and tokens
+MOE_SEED = 1501
+
+
+def moe_cell_cfg(name: str):
+    """The served cell's configuration as the benchmark runs it."""
+    from repro_torch.configs.base import ModelConfig
+
+    cfg = json.loads((ROOT / "bench" / "configs" / f"{name}.json").read_text())["model"]
+    return ModelConfig(**cfg).replace(use_pallas=True)
+
+
+def bf16_ulps(torch, a, b) -> float:
+    """The largest |a - b| in ulps of the larger of the two, element by element."""
+    a, b = a.float(), b.float()
+    top = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp(min=1e-30))) - 7)
+    return ((a - b).abs() / ulp).max().item()
+
+
+@contextlib.contextmanager
+def moe_recorded(moe_mod, ops, seen):
+    """``seen[name] = (args, out)`` of each call of the eager path's
+    ``_expert_ffn`` and the served path's ``ops.moe_gather``, ``ops.moe_combine``."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in
+             ((moe_mod, "_expert_ffn"), (ops, "moe_gather"), (ops, "moe_combine"))]
+
+    def wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen[name] = (args, out)
+            return out
+        return wrapped
+
+    for owner, name, fn in saved:
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def eager_moe(moe_mod):
+    """The parent's path: ``moe_ffn`` takes ``_dispatch_combine`` under no_grad too."""
+    saved = moe_mod._autograd_free
+    moe_mod._autograd_free = lambda p, x: False
+    try:
+        yield
+    finally:
+        moe_mod._autograd_free = saved
+
+
+def moe_layer_check(torch, cfg, dev) -> dict:
+    """15a: one MoE layer at the node batch's prefill shape (8 x 4,096 tokens
+    in groups of the config's size), routed by its router from seeded
+    tokens; the eager path against the served path on the same route."""
+    from repro_torch.kernels import moe_dispatch as kernels, ops
+    from repro_torch.models import moe as moe_mod
+
+    T, D, E, k = MOE_BATCH * MOE_PROMPT, cfg.d_model, cfg.n_experts, cfg.experts_per_token
+    g = min(cfg.moe_group_size, T)
+    n, C = T // g, moe_mod._capacity(cfg, g)
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    p = {name: v[0] for name, v in moe_mod.init_moe_params(cfg, 1, gen, dev,
+                                                           torch.bfloat16).items()}
+    x = torch.randn((T, D), generator=gen, device=dev).bfloat16()
+    xg = x.reshape(n, g, D)
+    with torch.no_grad():
+        logits = (x.float() @ p["router"].float()).reshape(n, g, E)
+        route = tuple(moe_mod._route_group(cfg, logits, C)[:4])
+        group = torch.arange(n, device=dev)[:, None]
+        eager = lambda: moe_mod._dispatch_combine(cfg, p, xg, route, C, group, n,  # noqa: E731
+                                                  buffer_of=x)
+        served = lambda: moe_mod._dispatch_combine_served(cfg, p, xg, route, C, T)  # noqa: E731
+        seen = {}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with moe_recorded(moe_mod, ops, seen):
+            y_eager = eager().reshape(T, D)
+        torch.cuda.synchronize()
+        peak_eager = torch.cuda.max_memory_allocated() - base
+        xe, ye = seen["_expert_ffn"][0][2], seen["_expert_ffn"][1]
+        xe = xe.transpose(0, 1).reshape(-1, D)
+        ye = ye.transpose(0, 1).reshape(-1, D)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        launches = [kernels.moe_gather_cuda.launches, kernels.moe_combine_cuda.launches]
+        with moe_recorded(moe_mod, ops, seen):
+            y_served = served()
+        torch.cuda.synchronize()
+        peak_served = torch.cuda.max_memory_allocated() - base
+        launches = [kernels.moe_gather_cuda.launches - launches[0],
+                    kernels.moe_combine_cuda.launches - launches[1]]
+        (x_flat, slot_token), buffer = seen["moe_gather"]
+        (ye_served, rows, w), _ = seen["moe_combine"]
+        out = dict(tokens=T, groups=n, capacity=C, rows=E * n * C,
+                   gather_bit_equal_plain=torch.equal(
+                       buffer, kernels.moe_gather_plain(x_flat, slot_token)),
+                   buffer_bit_equal_eager=torch.equal(buffer, xe),
+                   experts_bit_equal_eager=torch.equal(ye_served, ye),
+                   combine_bit_equal_ordered=torch.equal(
+                       y_served, kernels.moe_combine_ordered(ye_served, rows, w)),
+                   combine_ulps_eager=bf16_ulps(torch, y_served, y_eager),
+                   launches=launches, peak_eager=peak_eager, peak_served=peak_served,
+                   dropped=1.0 - (rows >= 0).sum().item() / rows.numel())
+        del xe, ye, y_eager, seen
+        kept_rows = (slot_token >= 0).sum().item()
+        kept = (rows >= 0).sum().item()
+        # the bytes each kernel must move: the gather reads each kept choice's
+        # token row and writes every row of the buffer (and reads its map);
+        # the combine reads each kept choice's expert row and writes each token
+        nb = x.element_size() * D
+        gather_bytes = kept_rows * nb + E * n * C * nb + slot_token.numel() * 4
+        combine_bytes = kept * nb + T * nb + rows.numel() * (4 + w.element_size())
+        act = moe_mod.activation_fn(cfg.activation)
+        gemms = lambda: torch.bmm(act(torch.bmm(buffer.view(E, n * C, D), p["we_gate"]))  # noqa: E731
+                                  * torch.bmm(buffer.view(E, n * C, D), p["we_in"]),
+                                  p["we_out"])
+        t = dict(
+            gather_ms=time_ms(torch, lambda: kernels.moe_gather_cuda(x_flat, slot_token), 5, 5),
+            gather_plain_ms=time_ms(torch, lambda: kernels.moe_gather_plain(x_flat, slot_token),
+                                    3, 1),
+            combine_ms=time_ms(torch, lambda: kernels.moe_combine_cuda(ye_served, rows, w), 5, 5),
+            combine_plain_ms=time_ms(torch, lambda: kernels.moe_combine_plain(ye_served, rows, w),
+                                     3, 1),
+            gemm_ms=time_ms(torch, gemms, 3, 1),
+            eager_layer_ms=time_ms(torch, eager, 3, 1),
+            served_layer_ms=time_ms(torch, served, 3, 1))
+    t["gather_bound_ms"] = gather_bytes / PEAK_BYTES * 1e3
+    t["combine_bound_ms"] = combine_bytes / PEAK_BYTES * 1e3
+    t["gather_share"] = t["gather_bound_ms"] / t["gather_ms"]
+    t["combine_share"] = t["combine_bound_ms"] / t["combine_ms"]
+    out.update(t, gather_bytes=gather_bytes, combine_bytes=combine_bytes)
+    print(f"[15a] {cfg.name}: {T} tokens in {n} groups of {g}, {E} experts top-{k}, capacity "
+          f"{C}, buffer {E * n * C} x {D} ({E * n * C * nb} B), dropped {out['dropped']:.4f}")
+    print(f"[15a] {cfg.name}: gather bit-equal to its plain version {out['gather_bit_equal_plain']}"
+          f", buffer bit-equal to the eager path's (expert-major) "
+          f"{out['buffer_bit_equal_eager']}, expert outputs bit-equal {out['experts_bit_equal_eager']}"
+          f", combine bit-equal to the ordered fp32 sum {out['combine_bit_equal_ordered']}, "
+          f"combine vs the eager einsum {out['combine_ulps_eager']:.3f} bf16 ulps; launches "
+          f"gather {launches[0]}, combine {launches[1]}")
+    print(f"[15a] {cfg.name}: CUDA-event ms: gather {t['gather_ms']:.4f} (bound "
+          f"{t['gather_bound_ms']:.4f} ms for {gather_bytes} B at {PEAK_BYTES / 1e12:g} TB/s, "
+          f"{100 * t['gather_share']:.1f}%; plain {t['gather_plain_ms']:.4f}); combine "
+          f"{t['combine_ms']:.4f} (bound {t['combine_bound_ms']:.4f} ms for {combine_bytes} B, "
+          f"{100 * t['combine_share']:.1f}%; plain {t['combine_plain_ms']:.4f}); the layer's "
+          f"dispatch, experts and combine: eager {t['eager_layer_ms']:.3f}, served "
+          f"{t['served_layer_ms']:.3f}, its three expert GEMMs alone {t['gemm_ms']:.3f}; "
+          f"peak above the inputs: eager {peak_eager} B, served {peak_served} B")
+    ok = (out["gather_bit_equal_plain"] and out["buffer_bit_equal_eager"]
+          and out["experts_bit_equal_eager"] and out["combine_bit_equal_ordered"]
+          and out["combine_ulps_eager"] <= 1.0 and launches == [1, 1])
+    if not ok:
+        raise AssertionError(f"phase 15a: {cfg.name}'s served MoE layer differs from the eager "
+                             f"path: {out}")
+    del p, x, xg, buffer, ye_served, y_served
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_batch_check(torch, api, cfg, dev) -> dict:
+    """15b: one node batch (8 prompts of 4,096, 2 generated tokens) of the
+    whole served cell, the eager path (the parent's) and the served path on
+    the same weights: the prefill and decode logits, the greedy tokens, the
+    ms of each, the peak memory and the launches; one prefill of each path
+    under the profiler."""
+    from repro_torch.kernels import moe_dispatch as kernels
+    from repro_torch.models import moe as moe_mod
+
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    params = api.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), generator=gen,
+                           device=dev)
+    counts = (kernels.moe_gather_cuda, kernels.moe_combine_cuda)
+
+    def run():
+        with torch.no_grad():
+            logits, cache = api.prefill(cfg, params, tokens, MOE_PROMPT + MOE_DECODE)
+            steps, out = [logits[:, -1].float()], []
+            for _ in range(MOE_DECODE):
+                tok = logits[:, -1, :].argmax(dim=-1)[:, None]
+                out.append(tok)
+                logits, cache = api.decode_step(cfg, params, cache, tok)
+                steps.append(logits[:, -1].float())
+        return torch.cat(out, dim=1), steps
+
+    def measured(label):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = [fn.launches for fn in counts]
+        toks, steps = run()
+        torch.cuda.synchronize()
+        rec = dict(peak=torch.cuda.max_memory_allocated(), peak_above_weights=
+                   torch.cuda.max_memory_allocated() - base,
+                   launches=[fn.launches - b for fn, b in zip(counts, before)],
+                   ms=time_ms(torch, run, 3, 1, warmup=1))
+        busy, wall, top = profile_step(torch, lambda: api.prefill(cfg, params, tokens,
+                                                                  MOE_PROMPT + MOE_DECODE))
+        rec.update(prefill_busy_ms=busy, prefill_wall_ms=wall, prefill_top=top)
+        print(f"[15b] {cfg.name} {label}: a node batch (prefill + {MOE_DECODE} decode steps) "
+              f"{rec['ms']:.1f} ms, peak {rec['peak']} B ({rec['peak_above_weights']} B above "
+              f"the weights), launches gather {rec['launches'][0]}, combine "
+              f"{rec['launches'][1]}; one prefill under the profiler: busy {busy:.1f} ms of "
+              f"{wall:.1f} ms; {top}")
+        return toks, steps, rec
+
+    with eager_moe(moe_mod):
+        toks0, steps0, eager = measured("eager (the parent's path)")
+    toks1, steps1, served = measured("served")
+    rel = [((a - b).abs().max() / a.abs().max()).item() for a, b in zip(steps0, steps1)]
+    want = [cfg.n_layers * (1 + MOE_DECODE)] * 2     # every layer's FFN is the MoE
+    out = dict(eager=eager, served=served, tokens_equal=torch.equal(toks0, toks1),
+               logits_rel=rel, want_launches=want)
+    print(f"[15b] {cfg.name}: greedy tokens equal {out['tokens_equal']}; largest |logit "
+          f"difference| over the largest logit, prefill / decode steps: "
+          f"{' / '.join(f'{r:.3e}' for r in rel)}; peak eager {eager['peak']} B, served "
+          f"{served['peak']} B; ms eager {eager['ms']:.1f}, served {served['ms']:.1f}")
+    if not (out["tokens_equal"] and eager["launches"] == [0, 0]
+            and served["launches"] == want and served["peak"] <= eager["peak"]):
+        raise AssertionError(f"phase 15b: {cfg.name}'s served node batch differs from the "
+                             f"eager path's: {out}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, api, dev) -> dict:
+    """Phase 15: the served MoE dispatch and combine kernels at both served
+    MoE cells' shapes (15a a layer, 15b a node batch of the whole cell)."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build(["moe_dispatch"])
+    print(f"[15] built csrc/moe_dispatch.cu in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_summary(_build.build_logs.get("moe_dispatch", "")):
+        print(f"[15] ptxas moe_dispatch: {line}")
+    out = {}
+    for name in MOE_CELLS:
+        cfg = moe_cell_cfg(name)
+        out[name] = {"layer": moe_layer_check(torch, cfg, dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name]["batch"] = moe_batch_check(torch, api, cfg, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 EXAMPLE_ARGS = {
     "chaos_campaign": ["--preset", "rack_outage", "--preset", "transient_flap",
                        "--recovery", "substitute"],
@@ -3112,6 +3387,7 @@ def main(argv: list[str]) -> int:
     multirank_only = "--multirank-only" in argv  # phases 1, 11 and 12
     dryrun_only = "--dryrun-only" in argv    # phases 1, 2 (flash only) and 13
     examples_only = "--examples-only" in argv  # phases 1, 2 (flash only) and 14
+    moe_only = "--moe-only" in argv          # phases 1 and 15
 
     if "--dryrun-worker" in argv:      # phase 13b or 13c, started by phase 13; no card
         i = argv.index("--dryrun-worker")
@@ -3200,10 +3476,14 @@ def main(argv: list[str]) -> int:
         train = train_phase(torch, rt_core, api, train_cfgs, dev, counters)
         print(json.dumps({"train_only": train}, default=str))
         return 0
+    if moe_only:
+        print(json.dumps({"moe_only": moe_phase(torch, api, dev)}, default=str))
+        return 0
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib_paths = _build.build(["flash_attention", "ssd_scan", "quantize", "adamw"])
+    lib_paths = _build.build(["flash_attention", "ssd_scan", "quantize", "adamw",
+                              "moe_dispatch"])
     print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} "
           f"in {time.perf_counter() - t0:.2f} s")
     for name, log in sorted(_build.build_logs.items()):
@@ -3523,6 +3803,11 @@ def main(argv: list[str]) -> int:
     examples = examples_phase()
     path_launches.update({f"examples:{name}": r["launches"] for name, r in examples.items()})
     print(json.dumps({"examples": examples}))
+
+    # ---- 15. the served MoE dispatch and combine ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"moe_dispatch": moe_phase(torch, api, dev)}, default=str))
 
     def entry(name, replaces, shapes):
         """One kernel's record at the serve path (hymba-1.5b, continuous): its

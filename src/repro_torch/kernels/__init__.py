@@ -9,6 +9,8 @@ the int8 absmax/quantize pair of the compression hop. Beside them, and
 replacing no Pallas kernel, ``adamw.py`` holds the optimizer's multi-tensor
 kernels (global-norm clip and AdamW over every leaf of a tree), which
 ``optim.adamw`` launches on CUDA leaves; its plain version is that
-module's eager code. Importing this package builds nothing and needs no
-CUDA.
+module's eager code; ``moe_dispatch.py`` holds the served MoE layer's
+gather into an expert-major buffer and combine out of it, which
+``models.moe`` reaches through ``ops`` where autograd records nothing.
+Importing this package builds nothing and needs no CUDA.
 """

@@ -1,7 +1,8 @@
 """Public kernel entry points, dispatched on where the tensors live.
 
-For CUDA tensors ``flash_attention``, ``ssd_scan``, ``absmax`` and
-``quantize_int8`` launch the hand-written kernels; for CPU tensors they run the kernels' plain PyTorch
+For CUDA tensors ``flash_attention``, ``ssd_scan``, ``absmax``,
+``quantize_int8``, ``moe_gather`` and ``moe_combine`` launch the
+hand-written kernels; for CPU tensors they run the kernels' plain PyTorch
 versions (the counterpart of the JAX package's Pallas ``interpret=True`` on
 CPU). They never fall back from one to the other: a CUDA launch that fails
 raises. They take plain tensors only: a DTensor (a model run on a mesh
@@ -15,6 +16,12 @@ import torch
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
+)
+from repro_torch.kernels.moe_dispatch import (
+    moe_combine_cuda,
+    moe_combine_plain,
+    moe_gather_cuda,
+    moe_gather_plain,
 )
 from repro_torch.kernels.quantize import (
     absmax_cuda,
@@ -81,3 +88,24 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return quantize_plain(x, scale)
     raise ValueError(f"quantize_int8 runs on CUDA or CPU tensors, not {x.device}")
+
+
+def moe_gather(x: torch.Tensor, slot_token: torch.Tensor) -> torch.Tensor:
+    """(N, D) tokens -> (rows, D): row r is ``x[slot_token[r]]``, or zeros where it is -1."""
+    _no_dtensor("moe_gather", x, slot_token)
+    if x.device.type == "cuda":
+        return moe_gather_cuda(x, slot_token)
+    if x.device.type == "cpu":
+        return moe_gather_plain(x, slot_token)
+    raise ValueError(f"moe_gather runs on CUDA or CPU tensors, not {x.device}")
+
+
+def moe_combine(ye: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(R, D) expert outputs -> (T, D): each token's ``w``-weighted sum of its
+    kept choices' rows (``rows`` (T, k), -1 where a choice was dropped)."""
+    _no_dtensor("moe_combine", ye, rows, w)
+    if ye.device.type == "cuda":
+        return moe_combine_cuda(ye, rows, w)
+    if ye.device.type == "cpu":
+        return moe_combine_plain(ye, rows, w)
+    raise ValueError(f"moe_combine runs on CUDA or CPU tensors, not {ye.device}")

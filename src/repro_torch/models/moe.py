@@ -25,6 +25,17 @@ and sums them weighted by the gates. The expert FFNs are three batched
 ``einsum``s, as the reference's, which computes them outside any Pallas
 kernel.
 
+**Served** (``_autograd_free``: autograd records nothing of the call and
+every tensor is plain, as under ``greedy_generate``'s ``no_grad``), the
+same function without the eager path's copies: the buffer is built
+expert-major, ``(E, n*C, D)``, by one gather (``ops.moe_gather``), the
+expert FFNs are ``torch.bmm`` on it in place (the products the einsums
+issue after their permute), and one combine (``ops.moe_combine``) reads
+the outputs back (``kernels/moe_dispatch.py``). On the CPU the kernels'
+plain versions give the eager path's output bit for bit. Training (which
+needs the eager path's backward), a routing span and a mesh keep the
+eager path.
+
 The reference's sharding constraints sit at its call sites: the groups
 and the expert buffers shard their group dim over the data axes
 (``shard_activations``), the expert intermediate its F dim over ``model``
@@ -73,6 +84,8 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import shard_activations, shard_heads, unsplit
+from repro_torch.kernels import ops
+from repro_torch.kernels.moe_dispatch import expert_major_rows
 from repro_torch.models.common import activation_fn, dense_init
 
 
@@ -231,10 +244,49 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, M
         # the logits themselves
         logits = unsplit(logits, 1)
         *route, aux, z, dropped = _route_group(cfg, logits, C)
-    y = _dispatch_combine(cfg, p, xg, route, C, torch.arange(n, device=x.device)[:, None], n,
-                          buffer_of=x)
-    y = _with_shared(cfg, p, tokens, y.reshape(n * g, D)[:T])
+    if _autograd_free(p, x):
+        y = _dispatch_combine_served(cfg, p, xg, route, C, T)
+    else:
+        y = _dispatch_combine(cfg, p, xg, route, C, torch.arange(n, device=x.device)[:, None],
+                              n, buffer_of=x).reshape(n * g, D)[:T]
+    y = _with_shared(cfg, p, tokens, y)
     return y, MoEMetrics(aux.mean(), z.mean(), dropped.mean())
+
+
+def _autograd_free(p: dict, x: torch.Tensor) -> bool:
+    """True where autograd records nothing of this call and every tensor
+    is plain (none a DTensor on a mesh): serving, whose ``greedy_generate``
+    runs under ``no_grad``. Training needs the eager path's backward."""
+    leaves = (x, *p.values())
+    if any(type(t) is not torch.Tensor for t in leaves):
+        return False
+    return not torch.is_grad_enabled() or not any(t.requires_grad for t in leaves)
+
+
+def _dispatch_combine_served(cfg: ModelConfig, p: dict, x: torch.Tensor, route: tuple,
+                             capacity: int, T: int) -> torch.Tensor:
+    """``_dispatch_combine`` of ``x`` (n, g, D), routed as ``route``'s
+    (expert_idx, slot, keep, gates) (n, g, k), without autograd: the expert
+    buffer built expert-major by one gather kernel, the expert GEMMs on it
+    in place, the combine kernel reading their output straight back
+    (``kernels/moe_dispatch.py``). Returns (T, D), the first T tokens'
+    outputs: equal to the eager path's on the CPU (the kernels' plain
+    versions), bit for bit but the combine's last bf16 ulp on the card."""
+    expert_idx, slot, keep, gates = route
+    n, g, D = x.shape
+    E, k = cfg.n_experts, keep.shape[-1]
+    with tracing.region("model.moe.dispatch"):
+        rows, slot_token = expert_major_rows(expert_idx, slot, keep, capacity, E)
+        xe = ops.moe_gather(x.reshape(n * g, D), slot_token).view(E, n * capacity, D)
+    with tracing.region("model.moe.experts"):
+        act = activation_fn(cfg.activation)
+        h = torch.bmm(xe, p["we_in"])
+        h = act(torch.bmm(xe, p["we_gate"])) * h if cfg.gated_mlp() else act(h)
+        ye = torch.bmm(h, p["we_out"])
+    with tracing.region("model.moe.combine"):
+        w = (gates * keep.to(gates.dtype)).to(x.dtype)
+        return ops.moe_combine(ye.view(E * n * capacity, D), rows.view(n * g, k)[:T],
+                               w.view(n * g, k)[:T])
 
 
 def _with_shared(cfg: ModelConfig, p: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
