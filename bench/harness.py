@@ -21,6 +21,8 @@ ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 # PyTorch's operators that launch a GEMM
 GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+# the prefixes of the program's profiler regions that ``regions_ms`` charges
+REGIONS = ("model.", "optim.")
 
 
 def load_json(path: Path) -> dict:
@@ -252,6 +254,60 @@ def _covered_us(starts: list[float], spans: list[tuple[float, float]], lo: float
     return _union_us(clipped)
 
 
+def _regions_ms(records) -> dict[str, float]:
+    """Device ms by the program region that launched each operation
+    (``reduce_trace``'s ``regions_ms``), from the profiler's own records
+    (``prof.profiler.kineto_results.events()``): a ``FunctionEvent`` carries
+    no link to its launch in every torch, a record does."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    device, ops, regions = [], {}, {}
+    for e in records:
+        if e.is_hidden_event():
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            if not e.name().startswith("bench."):
+                device.append(e)
+        elif not e.linked_correlation_id() and e.correlation_id():
+            # a host operation (a runtime call is linked to its operation)
+            ops[e.correlation_id()] = e
+            if e.name().startswith(REGIONS):
+                regions.setdefault(e.start_thread_id(), []).append(e)
+    # each thread's regions by start, the enclosing one first, and each
+    # one's enclosing region (-1 at the top)
+    nested = {}
+    for thread, rs in regions.items():
+        rs = sorted(((r.start_ns(), r.end_ns(), r.name()) for r in rs),
+                    key=lambda r: (r[0], -r[1]))
+        parent, stack = [], []
+        for i, (start, _, _) in enumerate(rs):
+            while stack and rs[stack[-1]][1] <= start:
+                stack.pop()
+            parent.append(stack[-1] if stack else -1)
+            stack.append(i)
+        nested[thread] = ([r[0] for r in rs], rs, parent)
+
+    def region_of(op) -> str:
+        """The innermost region around the operation on its thread: the
+        operation itself where it is a region."""
+        if op.start_thread_id() not in nested:
+            return "unattributed"
+        starts, rs, parent = nested[op.start_thread_id()]
+        i = bisect.bisect_right(starts, op.start_ns()) - 1
+        while i >= 0 and rs[i][1] < op.end_ns():
+            i = parent[i]
+        return rs[i][2] if i >= 0 else "unattributed"
+
+    out: dict[str, float] = {}
+    for d in device:
+        op = ops.get(d.linked_correlation_id())
+        name = "unattributed" if op is None else region_of(op)
+        out[name] = out.get(name, 0.0) + (d.end_ns() - d.start_ns()) / 1e6
+    return dict(sorted(out.items()))
+
+
 def reduce_trace(torch, prof, *, vocab: int, window_s: float) -> dict:
     """What the per-layer readers take from a ``torch.profiler`` run:
 
@@ -260,6 +316,22 @@ def reduce_trace(torch, prof, *, vocab: int, window_s: float) -> dict:
     * ``ranges_ms``: for each of the harness's ``bench.*`` ranges, the
       device time of the operations inside the device-side span the
       profiler draws for it (one stream: what the range launched);
+    * ``regions_ms``: the device ms of the operations, summed by the
+      program's region that launched each. An operation is charged to the
+      innermost ``model.*`` or ``optim.*`` region (``repro_torch.tracing.
+      region``) open on the host thread that launched it when the runtime
+      call that launched it began, or to ``"unattributed"`` where none was
+      open. The charge follows the launch, not the kernel's run: the card
+      runs behind the host, so a kernel that runs after its region closed
+      still belongs to it. Kernel and launch are linked by the profiler's
+      correlation ids, never by time on the device (the regions draw no
+      device-side span): a device record's ``linked_correlation_id`` names
+      the innermost host operation (an operator, a span or a region) open
+      when its runtime call began, and the region is that operation, or
+      the innermost region around it on its thread (host clock against
+      host clock: the runtime call's own time stamp comes from another
+      clock, and a launch at a region's very end can read past it). The
+      parts sum to the operations' summed durations;
     * ``vocab_gemm_ms``: device ms of the GEMMs with the vocabulary as a
       dimension (the loss's logits, forward and backward);
     * ``breakdown``: the ten device operations that took most time, and the
@@ -305,6 +377,7 @@ def reduce_trace(torch, prof, *, vocab: int, window_s: float) -> dict:
         inner = min(open_, key=lambda r: r.time_range.end - r.time_range.start, default=None)
         named.append([inner.name if inner else "bench.outside", (e - s) / 1e6])
     return {"busy_s": busy_us / 1e6, "window_s": window_s, "ranges_ms": ranges_ms,
+            "regions_ms": _regions_ms(prof.profiler.kineto_results.events()),
             "vocab_gemm_ms": vocab_ms,
             "breakdown": {"device_ops": [[n, s] for n, s in ops], "idle_gaps": named}}
 
@@ -321,6 +394,18 @@ def idle_share(trace: dict, walls: list[dict]) -> float | None:
     if not steady or hi <= lo:
         return None
     return 100.0 * (1.0 - trace["busy_s"] / (hi - lo) / statistics.median(steady))
+
+
+def region_ms(trace: dict, region: str) -> float | None:
+    """Device ms a traced step or round charged to the program's region
+    ``region`` and the regions under it (``model.moe`` takes
+    ``model.moe.route`` and its siblings): their ``regions_ms`` summed over
+    the traced steps or rounds, over their count. None where the run charged
+    none of them."""
+    lo, hi = trace["traced"]
+    ms = [v for k, v in trace["regions_ms"].items()
+          if k == region or k.startswith(region + ".")]
+    return sum(ms) / (hi - lo) if ms and hi > lo else None
 
 
 def steady_rate(trace: dict, walls: list[dict]) -> float | None:

@@ -16,7 +16,8 @@ CPU_TRAFFIC = {
     "serve": {"prompt_len": 32},
 }
 # the cells' configurations at the program's smoke sizes
-SMOKE = {"mixtral-8x22b-1l": "mixtral-8x22b", "hymba-1.5b": "hymba-1.5b"}
+SMOKE = {"mixtral-8x22b-1l": "mixtral-8x22b", "hymba-1.5b": "hymba-1.5b",
+         "granite-4.0-h-small-10l": "granite-4.0-h-small"}
 
 
 def smoke_config(config_name: str, dtype: str = "bfloat16") -> dict:

@@ -17,7 +17,6 @@ from bench import harness, roofline
 from bench.tests import support
 
 CELL = "granite-serve"
-support.SMOKE.setdefault("granite-4.0-h-small-10l", "granite-4.0-h-small")
 SMOKE_LIMITS = {"gap": 1e-3}
 
 

@@ -1,7 +1,9 @@
 """The per-layer metrics read from the program's own spans
 (``"source": "program_span"``): their entries, and their readings on a
 traced CPU run of each cell; without the program's tracer every reader
-gives None and raises nothing."""
+gives None and raises nothing. The readings cover every ``program_span``
+entry of ``BENCHMARK.json``, on every cell it lists, those appended later
+too."""
 import math
 import sys
 
@@ -11,31 +13,38 @@ from bench import harness
 from bench.tests import support
 
 B = harness.benchmark()
-# name: (layer, moves, cell)
+# name: (layer, moves, cells)
 SPANS = {
-    "repair_ms.train": ("trainer loop and control plane", "train_tokens_per_s", "mixtral-train"),
-    "batch_ms.train": ("trainer loop and control plane", "train_tokens_per_s", "mixtral-train"),
-    "sync_ms.train": ("device", "train_tokens_per_s", "mixtral-train"),
-    "repair_ms.serve": ("serve engine", "serve_p95_s", "mixtral-serve"),
-    "engine_ms.serve": ("serve engine", "serve_p95_s", "mixtral-serve"),
-    "sync_ms.serve": ("device", "serve_tokens_per_s", "mixtral-serve"),
-    "repair_ms.serve.hymba": ("serve engine", "serve_p95_s.hymba", "hymba-serve"),
-    "engine_ms.serve.hymba": ("serve engine", "serve_p95_s.hymba", "hymba-serve"),
-    "sync_ms.serve.hymba": ("device", "serve_tokens_per_s.hymba", "hymba-serve"),
-    "decode_host_ms.serve.hymba": ("model step", "serve_tokens_per_s.hymba", "hymba-serve"),
+    "repair_ms.train": ("trainer loop and control plane", "train_tokens_per_s",
+                        ["mixtral-train"]),
+    "batch_ms.train": ("trainer loop and control plane", "train_tokens_per_s",
+                       ["mixtral-train"]),
+    "sync_ms.train": ("device", "train_tokens_per_s", ["mixtral-train"]),
+    "repair_ms.serve": ("serve engine", "serve_p95_s", ["mixtral-serve"]),
+    "engine_ms.serve": ("serve engine", "serve_p95_s", ["mixtral-serve"]),
+    "sync_ms.serve": ("device", "serve_tokens_per_s", ["mixtral-serve"]),
+    "repair_ms.serve.hymba": ("serve engine", "serve_p95_s.hymba",
+                              ["hymba-serve", "granite-serve"]),
+    "engine_ms.serve.hymba": ("serve engine", "serve_p95_s.hymba",
+                              ["hymba-serve", "granite-serve"]),
+    "sync_ms.serve.hymba": ("device", "serve_tokens_per_s.hymba",
+                            ["hymba-serve", "granite-serve"]),
+    "decode_host_ms.serve.hymba": ("model step", "serve_tokens_per_s.hymba",
+                                   ["hymba-serve", "granite-serve"]),
 }
-CELLS = sorted({cell for _, _, cell in SPANS.values()})
+# every program_span entry of the benchmark, whoever appended it
+READ = {m["name"]: m["workloads"] for m in B["per_layer"] if m["source"] == "program_span"}
+CELLS = sorted({cell for cells in READ.values() for cell in cells})
 
 
 def test_entries():
-    entries = {m["name"]: m for m in B["per_layer"] if m["source"] == "program_span"}
-    assert set(entries) == set(SPANS)
-    for name, (layer, moves, cell) in SPANS.items():
-        m = entries[name]
-        assert m == {"name": name, "unit": "ms", "better": "lower", "source": "program_span",
-                     "layer": layer, "moves": moves, "workloads": [cell]}
-    # they come last, after every entry the benchmark had before them
-    assert [m["name"] for m in B["per_layer"][-len(SPANS):]] == list(SPANS)
+    """Each entry named here, field for field, wherever it sits in
+    ``per_layer``."""
+    entries = {m["name"]: m for m in B["per_layer"]}
+    for name, (layer, moves, cells) in SPANS.items():
+        assert entries[name] == {"name": name, "unit": "ms", "better": "lower",
+                                 "source": "program_span", "layer": layer,
+                                 "moves": moves, "workloads": cells}
 
 
 @pytest.fixture(scope="module")
@@ -54,8 +63,8 @@ def test_readers_on_a_traced_run(runs, cell):
     out = traced(runs, cell)
     trace, ctx = out["trace"], out["ctx"]
     walls = trace.get("steps") or trace["rounds"]
-    for name, (_, _, c) in SPANS.items():
-        if c != cell:
+    for name, cells in READ.items():
+        if cell not in cells:
             continue
         value = harness.metric_reader(name).read(trace, ctx)
         assert value is not None and math.isfinite(value), (name, value)
@@ -71,6 +80,6 @@ def test_readers_give_none_without_the_tracer(runs, cell, monkeypatch):
     out = traced(runs, cell)
     monkeypatch.delattr(repro_torch, "tracing")
     monkeypatch.setitem(sys.modules, "repro_torch.tracing", None)
-    for name, (_, _, c) in SPANS.items():
-        if c == cell:
+    for name, cells in READ.items():
+        if cell in cells:
             assert harness.metric_reader(name).read(out["trace"], out["ctx"]) is None, name
